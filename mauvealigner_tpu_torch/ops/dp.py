@@ -1,0 +1,353 @@
+"""K3: batched affine-gap DP (Gotoh) drivers and their plain-torch versions.
+
+Port of mauvealigner_tpu/ops/dp.py, the replacement for the libMUSCLE
+subprocess the reference forks per inter-anchor region
+(MuscleInterface::Align, src/MatchRecord.h:311, src/mauveAligner.cpp:82-83).
+Regions are bucketed by length, batched, and aligned on the device: the
+forward pass and the traceback are the CUDA kernels of ops/gotoh_cuda.py on
+a CUDA tensor, and the plain-torch functions below on a CPU tensor.
+
+The recurrence runs over anti-diagonals with the whole diagonal as one
+vector; each cell stores 4 decision bits: bits 0-1 the H source (0 diag,
+1 up/F, 2 left/E), bit 2 E opened from H, bit 3 F opened from H.  The
+decision array is laid out by diagonal, dec[b, d, i] = cell (i, d - i).
+Traceback emits an op string (1 = diag, 2 = up/consume-A, 3 =
+left/consume-B), end of alignment first.
+
+Gap model: a gap of length k costs gap_open + k*gap_extend (both negative).
+Tie-breaking is deterministic: diagonal > up > left; gap-open wins ties over
+gap-extend.  The substitution score of a cell is looked up from the codes,
+so no [B, M, N] score matrix is built, and everything accumulates in f32:
+HOXD-class integer scores are exact.
+"""
+
+from __future__ import annotations
+
+from typing import List, Sequence, Tuple
+
+import numpy as np
+import torch
+
+NEG = -1e9  # exactly representable in f32
+
+OP_NONE, OP_DIAG, OP_UP, OP_LEFT = 0, 1, 2, 3
+
+# HOXD70 substitution scores (Chiaromonte/Yap/Miller 2002), the matrix behind
+# the reference's hoxd scoring scheme (PairwiseScoringScheme / hoxd_matrix,
+# src/repeatoire.cpp:1994, src/evd.cpp:29-31).  Fifth row/col handles
+# ambiguity codes (never a good match).
+HOXD70 = np.array(
+    [
+        [91, -114, -31, -123, -44],
+        [-114, 100, -125, -31, -44],
+        [-31, -125, 100, -114, -44],
+        [-123, -31, -114, 91, -44],
+        [-44, -44, -44, -44, -44],
+    ],
+    dtype=np.float32,
+)
+
+DEFAULT_GAP_OPEN = -400.0
+DEFAULT_GAP_EXTEND = -30.0
+
+
+def read_substitution_matrix(path: str) -> np.ndarray:
+    """NCBI-format substitution matrix file -> [5, 5] float32.
+
+    Parity with readSubstitutionMatrix / --substitution-matrix
+    (src/progressiveMauve.cpp:666-687): '#' comments, a header row of
+    residue symbols, then one row per residue.  A/C/G/T columns map to codes
+    0-3; every other symbol (N, ambiguity codes, '*') folds into the
+    ambiguity row/column 4 as the minimum of the contributing scores.
+    """
+    order = {"A": 0, "C": 1, "G": 2, "T": 3}
+    header: List[str] = []
+    out = np.full((5, 5), np.nan, np.float32)
+    with open(path) as fh:
+        for line in fh:
+            line = line.strip()
+            if not line or line.startswith("#"):
+                continue
+            fields = line.split()
+            if not header:
+                header = [f.upper() for f in fields]
+                continue
+            sym = fields[0].upper()
+            scores = [float(x) for x in fields[1 : len(header) + 1]]
+            i = order.get(sym, 4)
+            for col_sym, val in zip(header, scores):
+                j = order.get(col_sym, 4)
+                if np.isnan(out[i, j]) or val < out[i, j]:
+                    out[i, j] = val
+    if np.isnan(out[:4, :4]).any():
+        raise ValueError(f"substitution matrix {path!r} is missing A/C/G/T entries")
+    # missing ambiguity entries default to the worst ACGT mismatch
+    fallback = out[:4, :4].min()
+    out = np.where(np.isnan(out), fallback, out)
+    return out.astype(np.float32)
+
+
+def one_hot_profile(codes: np.ndarray, length: int) -> np.ndarray:
+    """codes int array -> [length, 5] one-hot profile, zero-padded."""
+    out = np.zeros((length, 5), dtype=np.float32)
+    n = min(len(codes), length)
+    if n:
+        out[np.arange(n), np.minimum(codes[:n], 4)] = 1.0
+    return out
+
+
+def gap_scalars(gap_open: float, gap_extend: float) -> Tuple[float, float]:
+    """(gap_open + gap_extend, gap_extend), each rounded to f32 and the sum
+    taken in f32, as the JAX package computes them."""
+    go, ge = np.float32(gap_open), np.float32(gap_extend)
+    return float(go + ge), float(ge)
+
+
+def _subst6(subst: torch.Tensor) -> torch.Tensor:
+    """[5, 5] -> [6, 6] f32 with a zero row and column for padding codes."""
+    out = torch.zeros((6, 6), dtype=torch.float32, device=subst.device)
+    out[:5, :5] = subst.to(torch.float32)
+    return out
+
+
+def gotoh_forward_codes_ref(
+    codes_a: torch.Tensor,  # uint8 [B, M], padding >= 5
+    codes_b: torch.Tensor,  # uint8 [B, N]
+    lens_a: torch.Tensor,   # int32 [B]
+    lens_b: torch.Tensor,   # int32 [B]
+    subst: torch.Tensor,    # f32 [5, 5]
+    gap_open: float,
+    gap_extend: float,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain-torch Gotoh forward pass over anti-diagonals: what the JAX
+    package's _gotoh_core computes for one-hot code inputs.
+
+    Returns (scores [B] f32 = H[mA, mB], 0 when mA + mB == 0;
+    dec [B, M+N+1, M+1] uint8).  Cells outside the live band use a zero
+    substitution score; the traceback never reads them."""
+    B, M = codes_a.shape
+    N = codes_b.shape[1]
+    dev = codes_a.device
+    go_ge, ge = gap_scalars(gap_open, gap_extend)
+    sub = _subst6(subst).reshape(-1)
+    # lane i reads code a[i-1]; lane 0 has none
+    a_idx = torch.cat(
+        [torch.full((B, 1), 5, dtype=torch.int64, device=dev), codes_a.long().clamp(max=5)],
+        dim=1,
+    ) * 6
+    # column N of b_pad is the zero-score padding code read off the band
+    b_pad = torch.cat(
+        [codes_b.long().clamp(max=5), torch.full((B, 1), 5, dtype=torch.int64, device=dev)],
+        dim=1,
+    )
+    lane = torch.arange(M + 1, device=dev)
+    neg = torch.tensor(NEG, dtype=torch.float32, device=dev)
+    neg_col = torch.full((B, 1), NEG, dtype=torch.float32, device=dev)
+    H_prev = torch.where(lane == 0, 0.0, neg).expand(B, M + 1)
+    H_prev2 = torch.full((B, M + 1), NEG, dtype=torch.float32, device=dev)
+    E_prev = H_prev2
+    F_prev = H_prev2
+    d_final = lens_a.long() + lens_b.long()
+    la = lens_a.long()[:, None]
+    score = torch.where(d_final == 0, 0.0, neg)
+    dec = torch.empty((B, M + N + 1, M + 1), dtype=torch.uint8, device=dev)
+    dec[:, 0] = 0
+    for d in range(1, M + N + 1):
+        j = d - lane
+        e_from_h = H_prev + go_ge
+        e_from_e = E_prev + ge
+        e_open = e_from_h >= e_from_e
+        E = torch.where(j >= 1, torch.maximum(e_from_h, e_from_e), neg)
+
+        f_from_h = torch.cat([neg_col, H_prev[:, :-1]], dim=1) + go_ge
+        f_from_f = torch.cat([neg_col, F_prev[:, :-1]], dim=1) + ge
+        f_open = f_from_h >= f_from_f
+        F = torch.where(lane >= 1, torch.maximum(f_from_h, f_from_f), neg)
+
+        bj = b_pad[:, torch.where((j >= 1) & (j <= N), j - 1, N)]
+        s = torch.where(lane == 0, neg, sub[a_idx + bj])
+        Hd = torch.cat([neg_col, H_prev2[:, :-1]], dim=1) + s
+
+        # priority diag > up(F) > left(E); strict > keeps the earlier choice
+        better_f = F > Hd
+        best = torch.where(better_f, F, Hd)
+        choice = better_f.to(torch.uint8)
+        better_e = E > best
+        best = torch.where(better_e, E, best)
+        choice = torch.where(better_e, 2, choice)
+        dec[:, d] = choice | (e_open.to(torch.uint8) << 2) | (f_open.to(torch.uint8) << 3)
+        score = torch.where(d_final == d, best.gather(1, la)[:, 0], score)
+        H_prev2, H_prev, E_prev, F_prev = H_prev, best, E, F
+    return score, dec
+
+
+def gotoh_traceback_ref(
+    dec: torch.Tensor,     # uint8 [B, M+N+1, M+1]
+    lens_a: torch.Tensor,  # int32 [B]
+    lens_b: torch.Tensor,  # int32 [B]
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain-torch traceback: what the JAX package's gotoh_traceback
+    computes.  Walks each problem from (mA, mB) to (0, 0) with an H/F/E
+    mode state.  Returns (ops [B, M+N] uint8 end-first, OP_NONE after the
+    walk ends; counts [B] int32)."""
+    B, n_diags, W = dec.shape
+    L = n_diags - 1
+    dev = dec.device
+    dec_flat = dec.reshape(B, -1)
+    i = lens_a.long()
+    j = lens_b.long()
+    mode = torch.zeros(B, dtype=torch.int64, device=dev)
+    ops = torch.zeros((B, L), dtype=torch.uint8, device=dev)
+    steps = int((i + j).max()) if B else 0
+    for t in range(steps):
+        active = (i > 0) | (j > 0)
+        idx = ((i + j) * W + i).clamp(0, n_diags * W - 1)
+        byte = dec_flat.gather(1, idx[:, None])[:, 0].long()
+        from_h = torch.where(i == 0, 2, torch.where(j == 0, 1, byte & 3))
+        c = torch.where(mode == 0, from_h, mode)
+        ops[:, t] = torch.where(active, c + 1, OP_NONE).to(torch.uint8)
+        opened = torch.where(c == 1, (byte >> 3) & 1, (byte >> 2) & 1)
+        nmode = torch.where((c == 0) | (opened == 1), 0, c)
+        i = torch.where(active & (c != 2), i - 1, i)
+        j = torch.where(active & (c != 1), j - 1, j)
+        mode = torch.where(active, nmode, mode)
+    counts = (ops != OP_NONE).sum(dim=1, dtype=torch.int32)
+    return ops, counts
+
+
+def align_code_pairs_batch_async(
+    codes_a: np.ndarray,  # uint8 [B, M], pad with 255
+    codes_b: np.ndarray,
+    lens_a: np.ndarray,
+    lens_b: np.ndarray,
+    subst: np.ndarray = HOXD70,
+    gap_open: float = DEFAULT_GAP_OPEN,
+    gap_extend: float = DEFAULT_GAP_EXTEND,
+    device="cuda",
+):
+    """Launch a batched sequence-pair alignment on `device`; returns a
+    zero-arg fetch() -> (list of op arrays in start-to-end order, scores
+    [B]).  Launches are asynchronous on a CUDA device; fetch() blocks."""
+    from mauvealigner_tpu_torch.ops import gotoh_cuda  # imports this module
+    from mauvealigner_tpu_torch.utils import timing
+
+    B, M = codes_a.shape
+    N = codes_b.shape[1]
+    la_h = np.asarray(lens_a, np.int32)
+    lb_h = np.asarray(lens_b, np.int32)
+    if B and (la_h.min() < 0 or lb_h.min() < 0 or la_h.max() > M or lb_h.max() > N):
+        raise ValueError(f"lengths must lie in [0, {M}] x [0, {N}]")
+    timing.GLOBAL.add("dp_cells", float(B) * M * N)
+    timing.GLOBAL.add("dp_calls", 1.0)
+    ca = torch.from_numpy(np.ascontiguousarray(codes_a, np.uint8)).to(device)
+    cb = torch.from_numpy(np.ascontiguousarray(codes_b, np.uint8)).to(device)
+    la = torch.from_numpy(la_h).to(device)
+    lb = torch.from_numpy(lb_h).to(device)
+    sub = torch.from_numpy(np.asarray(subst, np.float32).copy()).to(device)
+    scores, dec = gotoh_cuda.gotoh_forward_codes(ca, cb, la, lb, sub, gap_open, gap_extend)
+    ops, counts = gotoh_cuda.gotoh_traceback(dec, la, lb)
+    del dec  # the decision bytes are dead once the traceback is queued
+
+    def fetch():
+        ops_h = ops.cpu().numpy()
+        cnt = counts.cpu().numpy()
+        out = [ops_h[b, : cnt[b]][::-1].copy() for b in range(B)]
+        return out, scores.cpu().numpy()
+
+    return fetch
+
+
+def align_code_pairs_batch(
+    codes_a: np.ndarray,  # uint8 [B, M], pad with 255
+    codes_b: np.ndarray,
+    lens_a: np.ndarray,
+    lens_b: np.ndarray,
+    subst: np.ndarray = HOXD70,
+    gap_open: float = DEFAULT_GAP_OPEN,
+    gap_extend: float = DEFAULT_GAP_EXTEND,
+    device="cuda",
+) -> Tuple[List[np.ndarray], np.ndarray]:
+    """Blocking align_code_pairs_batch_async."""
+    return align_code_pairs_batch_async(
+        codes_a, codes_b, lens_a, lens_b, subst, gap_open, gap_extend, device
+    )()
+
+
+def _bucket(n: int, buckets: Sequence[int]) -> int:
+    for b in buckets:
+        if n <= b:
+            return b
+    return buckets[-1]
+
+
+DEFAULT_BUCKETS = (16, 32, 64, 128, 256, 512, 1024, 2048)
+
+
+def dec_bytes(M: int, N: int) -> int:
+    """Device bytes per problem of an M x N launch: the decision array is
+    the only per-problem buffer the kernels keep."""
+    return (M + N + 1) * (M + 1)
+
+
+def align_sequence_pairs(
+    pairs: Sequence[Tuple[np.ndarray, np.ndarray]],
+    subst: np.ndarray = HOXD70,
+    gap_open: float = DEFAULT_GAP_OPEN,
+    gap_extend: float = DEFAULT_GAP_EXTEND,
+    buckets: Sequence[int] = DEFAULT_BUCKETS,
+    max_batch: int = 4096,
+    memory_budget_bytes: int = 3 << 29,
+    device="cuda",
+) -> List[np.ndarray]:
+    """Globally align many (codesA, codesB) pairs, bucketing by length.
+
+    Returns per-pair op arrays.  Pairs longer than the largest bucket raise:
+    callers cap region size (--max-gapped-aligner-length semantics,
+    src/mauveAligner.cpp:675-676).  memory_budget_bytes bounds the decision
+    bytes of one launch (default 1.5 GB).
+    """
+    results: List[np.ndarray] = [None] * len(pairs)  # type: ignore[list-item]
+    groups: dict = {}
+    for idx, (a, b) in enumerate(pairs):
+        if len(a) == 0 or len(b) == 0:
+            # degenerate: pure gap alignment
+            ops = np.concatenate(
+                [np.full(len(a), OP_UP, np.uint8), np.full(len(b), OP_LEFT, np.uint8)]
+            )
+            results[idx] = ops
+            continue
+        if len(a) > buckets[-1] or len(b) > buckets[-1]:
+            raise ValueError(
+                f"region {idx} ({len(a)}x{len(b)}) exceeds the largest DP bucket {buckets[-1]}"
+            )
+        side = _bucket(max(len(a), len(b)), buckets)
+        groups.setdefault(side, []).append(idx)
+    pending = []  # (chunk, fetch): launch everything, then download
+    for side, idxs in groups.items():
+        bmax = max(1, min(max_batch, memory_budget_bytes // dec_bytes(side, side)))
+        for off in range(0, len(idxs), bmax):
+            chunk = idxs[off : off + bmax]
+            ca = np.full((len(chunk), side), 255, np.uint8)
+            cb = np.full((len(chunk), side), 255, np.uint8)
+            la = np.zeros(len(chunk), np.int32)
+            lb = np.zeros(len(chunk), np.int32)
+            for k, idx in enumerate(chunk):
+                a, b = pairs[idx]
+                ca[k, : len(a)] = np.minimum(a, 4)
+                cb[k, : len(b)] = np.minimum(b, 4)
+                la[k], lb[k] = len(a), len(b)
+            pending.append((chunk, align_code_pairs_batch_async(
+                ca, cb, la, lb, subst, gap_open, gap_extend, device
+            )))
+    for chunk, fetch in pending:
+        ops_list, _ = fetch()
+        for k, idx in enumerate(chunk):
+            results[idx] = ops_list[k]
+    return results
+
+
+def ops_to_gap_rows(ops: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """Op string -> (rowA, rowB) boolean arrays (True = base, False = gap)."""
+    row_a = (ops == OP_DIAG) | (ops == OP_UP)
+    row_b = (ops == OP_DIAG) | (ops == OP_LEFT)
+    return row_a, row_b

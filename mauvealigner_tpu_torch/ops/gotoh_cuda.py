@@ -1,0 +1,137 @@
+"""K3 kernels: the hand-written CUDA Gotoh forward pass and traceback.
+
+gotoh_forward_codes replaces the TPU kernel
+mauvealigner_tpu/ops/dp_pallas.py::_kernel / gotoh_forward_pallas;
+gotoh_traceback replaces the XLA mauvealigner_tpu/ops/dp.py::gotoh_traceback.
+The sources are csrc/gotoh.cu (design and bounds noted there), built by
+ops/_build.py on first use.
+
+Dispatch: a CUDA tensor launches the kernel (or raises); a CPU tensor runs
+the plain-torch version in ops/dp.py.  LAUNCHES counts the kernel launches
+of each wrapper (plain-version calls are not counted).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+from mauvealigner_tpu_torch.ops import dp
+
+# the largest DP side whose 7 state rows (7 x 4 x (side+1) bytes) fit a
+# Hopper block's 227 KB of shared memory; larger sides raise
+MAX_SIDE = 8192
+
+LAUNCHES = {"gotoh_forward_codes": 0, "gotoh_traceback": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape, device) -> None:
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _raise_on_error(lib, err: int, what: str) -> None:
+    if err != 0:
+        msg = lib.gotoh_error_string(err).decode()
+        raise RuntimeError(f"{what} launch failed: CUDA error {err} ({msg})")
+
+
+def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def gotoh_forward_codes(
+    codes_a: torch.Tensor,  # uint8 [B, M], codes > 4 are padding
+    codes_b: torch.Tensor,  # uint8 [B, N]
+    lens_a: torch.Tensor,   # int32 [B], each <= M
+    lens_b: torch.Tensor,   # int32 [B], each <= N
+    subst: torch.Tensor,    # f32 [5, 5]
+    gap_open: float,
+    gap_extend: float,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Batched Gotoh forward pass: (scores [B] f32, dec [B, M+N+1, M+1]
+    uint8), as dp.gotoh_forward_codes_ref computes them."""
+    if codes_a.device.type == "cpu":
+        return dp.gotoh_forward_codes_ref(
+            codes_a, codes_b, lens_a, lens_b, subst, gap_open, gap_extend
+        )
+    if codes_a.device.type != "cuda":
+        raise ValueError(f"no Gotoh kernel for device {codes_a.device}")
+    B, M = codes_a.shape
+    N = codes_b.shape[1]
+    dev = codes_a.device
+    _check(codes_a, "codes_a", torch.uint8, (B, M), dev)
+    _check(codes_b, "codes_b", torch.uint8, (B, N), dev)
+    _check(lens_a, "lens_a", torch.int32, (B,), dev)
+    _check(lens_b, "lens_b", torch.int32, (B,), dev)
+    _check(subst, "subst", torch.float32, (5, 5), dev)
+    if M > MAX_SIDE:
+        raise ValueError(
+            f"DP side {M} exceeds the CUDA kernel's shared-memory limit of "
+            f"{MAX_SIDE} (lower --max-gapped-aligner-length)"
+        )
+    scores = torch.empty(B, dtype=torch.float32, device=dev)
+    dec = torch.empty((B, M + N + 1, M + 1), dtype=torch.uint8, device=dev)
+    if B == 0:
+        return scores, dec
+    from mauvealigner_tpu_torch.ops import _build
+
+    lib = _build.library()
+    go_ge, ge = dp.gap_scalars(gap_open, gap_extend)
+    err = lib.gotoh_forward_codes_launch(
+        _ptr(codes_a), _ptr(codes_b), _ptr(lens_a), _ptr(lens_b), _ptr(subst),
+        go_ge, ge, B, M, N, _ptr(scores), _ptr(dec),
+        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
+    )
+    _raise_on_error(lib, err, "gotoh_forward_codes")
+    LAUNCHES["gotoh_forward_codes"] += 1
+    return scores, dec
+
+
+def gotoh_traceback(
+    dec: torch.Tensor,     # uint8 [B, M+N+1, M+1]
+    lens_a: torch.Tensor,  # int32 [B]
+    lens_b: torch.Tensor,  # int32 [B]
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Traceback of gotoh_forward_codes' decisions: (ops [B, M+N] uint8 end
+    first, counts [B] int32), as dp.gotoh_traceback_ref computes them."""
+    if dec.device.type == "cpu":
+        return dp.gotoh_traceback_ref(dec, lens_a, lens_b)
+    if dec.device.type != "cuda":
+        raise ValueError(f"no traceback kernel for device {dec.device}")
+    B, n_diags, W = dec.shape
+    M = W - 1
+    N = n_diags - 1 - M
+    if N < 0:
+        raise ValueError(f"dec shape {tuple(dec.shape)} is not [B, M+N+1, M+1]")
+    dev = dec.device
+    _check(dec, "dec", torch.uint8, (B, n_diags, W), dev)
+    _check(lens_a, "lens_a", torch.int32, (B,), dev)
+    _check(lens_b, "lens_b", torch.int32, (B,), dev)
+    ops = torch.empty((B, M + N), dtype=torch.uint8, device=dev)
+    counts = torch.empty(B, dtype=torch.int32, device=dev)
+    if B == 0:
+        return ops, counts
+    from mauvealigner_tpu_torch.ops import _build
+
+    lib = _build.library()
+    err = lib.gotoh_traceback_launch(
+        _ptr(dec), _ptr(lens_a), _ptr(lens_b), B, M, N, _ptr(ops), _ptr(counts),
+        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
+    )
+    _raise_on_error(lib, err, "gotoh_traceback")
+    LAUNCHES["gotoh_traceback"] += 1
+    return ops, counts

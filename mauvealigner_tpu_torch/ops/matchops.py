@@ -1,0 +1,598 @@
+"""K2: multi-way mer merge and multi-MUM enumeration, in torch.
+
+Port of the device path of mauvealigner_tpu/ops/matchops.py (libMems
+MatchFinder/MemHash in the reference: MaskedMemHash at
+src/mauveAligner.cpp:523-530, SeedMatchEnumerator at
+src/SeedMatchEnumerator.h:59-141).  Everything is sorts plus segmented
+scans:
+
+  1. concatenate every genome's (canonical key, position) list, tagged with
+     the genome id, and sort by (mer, genome, position);
+  2. group identical mers (a "seed group"); within a group classify each
+     occurrence as genome-unique or repeated;
+  3. hash each group's kept members into an order-independent 64-bit
+     signature (diagonal invariants included);
+  4. merge runs of consecutive reference windows with equal signatures into
+     one match, then
+  5. extend matches base by base to maximality on the host (native C++).
+
+Strand handling follows SeedMatchEnumerator::SetDirection
+(src/SeedMatchEnumerator.h:127-141): the first participating genome is the
+reference component (always forward); a component whose canonical-strand
+bit differs from the reference's gets a negative start.
+
+All integer arithmetic matches the JAX package bit for bit: int64 products
+and sums wrap in two's complement, and every `>>` of a possibly negative
+int64 is masked to emulate a logical shift, exactly as there.
+"""
+
+from __future__ import annotations
+
+import time
+import warnings
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from mauvealigner_tpu_torch.core.match import NO_MATCH, MatchList
+from mauvealigner_tpu_torch.genome.sequence import CODE_N, Genome
+from mauvealigner_tpu_torch.ops import merops
+from mauvealigner_tpu_torch.ops.merops import INVALID_KEY
+from mauvealigner_tpu_torch.utils import timing
+
+_INT32_MAX = np.iinfo(np.int32).max
+
+_MIX_C1 = -7046029254386353131  # 0x9E3779B97F4A7C15 as signed
+_MIX_C2 = -4417276706812531889  # 0xC2B2AE3D27D4EB4F
+_MIX_C3 = -8796714831421723037  # 0x85EBCA77C2B2AE63
+
+
+def _global_sort(keys: torch.Tensor, seq_ids: torch.Tensor, positions: torch.Tensor):
+    """Sort concatenated mer-list entries by (mer, genome, position), the
+    strand bit (key LSB) carried along.  Replaces both _global_sort and
+    _global_sort_packed of the JAX package (the packed variant only cut
+    sort operands on the TPU).
+
+    Precondition: entries with equal mer arrive in (genome, position)
+    order, which both producers here guarantee (the per-genome lists are
+    concatenated in genome order and each is in position order; the gap
+    search lays regions out gap-major, genome-minor).  One stable sort by
+    mer then gives the full lexicographic order."""
+    mer_s, order = torch.sort(keys >> 1, stable=True)
+    strand_s = (keys[order] & 1).to(torch.int32)
+    return mer_s, seq_ids[order], positions[order], strand_s
+
+
+def _mix64(x: torch.Tensor, c: int) -> torch.Tensor:
+    """SplitMix64-style finalizer (wrapping int64 arithmetic)."""
+    x = x * c
+    x = x ^ ((x >> 30) & 0x3FFFFFFFF)
+    x = x * -4658895280553007687  # 0xBF58476D1CE4E5B9
+    x = x ^ ((x >> 27) & 0x1FFFFFFFFF)
+    return x
+
+
+def _carry_last2(va, vb, flags, reverse=False):
+    """Per-entry (va, vb) of the nearest flagged entry at/before each
+    position (at/after with reverse=True); positions before any flag keep
+    their own values.  A cummax (cummin from the end) over flagged indices
+    finds each entry's source."""
+    n = va.shape[0]
+    iota = torch.arange(n, dtype=torch.int64, device=va.device)
+    if reverse:
+        idx = torch.where(flags, iota, n).flip(0).cummin(0).values.flip(0)
+        ok = idx < n
+    else:
+        idx = torch.where(flags, iota, -1).cummax(0).values
+        ok = idx >= 0
+    safe = idx.clamp(0, n - 1)
+    out = tuple(torch.where(ok, v[safe], v) for v in (va, vb) if v is not None)
+    return out if vb is not None else out[0]
+
+
+def _sig_phase(keys, seq_ids, positions, seq_mask, n_seqs, min_multi):
+    """Grouping half of the candidate search: sort by (mer, genome, pos),
+    detect seed groups, per-genome uniqueness, reference selection, and the
+    order-independent 64-bit group signature.
+
+    Returns per-entry tensors in sorted order: seg ids, kept mask, rep mask
+    (the group's reference entry), group signature (incl. multiplicity),
+    genome ids, window positions, signed 1-based positions, reference
+    positions.  Segments are contiguous in sorted order, so every
+    per-segment reduction is a cumsum plus monotone cummax/cummin fills."""
+    mer_s, seq_s, pos_s, strand_s = _global_sort(keys, seq_ids, positions)
+    dev = mer_s.device
+    valid = mer_s != (INVALID_KEY >> 1)
+
+    new_seg = mer_s != torch.cat([mer_s[:1] - 1, mer_s[:-1]])
+    is_end = torch.cat([new_seg[1:], torch.ones(1, dtype=torch.bool, device=dev)])
+    seg_id = torch.cumsum(new_seg, 0, dtype=torch.int32) - 1
+    same_ms = (~new_seg) & (seq_s == torch.cat([seq_s[:1] - 1, seq_s[:-1]]))
+    next_same = torch.cat([same_ms[1:], torch.zeros(1, dtype=torch.bool, device=dev)])
+    occ_unique = valid & ~same_ms & ~next_same
+    kept = occ_unique & (seq_mask[seq_s.clamp(0, n_seqs - 1).long()] > 0)
+
+    # segment kept-count broadcast per entry: cumsum + monotone boundary
+    # fills (segment-start bases and segment-end totals are nondecreasing)
+    k32 = kept.to(torch.int32)
+    cs = torch.cumsum(k32, 0, dtype=torch.int32)
+    base = torch.where(new_seg, cs - k32, 0).cummax(0).values
+    end = torch.where(is_end, cs, _INT32_MAX).flip(0).cummin(0).values.flip(0)
+    count_here = end - base
+    kept = kept & (count_here >= min_multi)
+
+    # reference = first kept entry of the segment; its (pos, strand) reach
+    # every kept entry via a forward carry
+    is_rep = kept & (cs == base + 1)
+    ref_pos, ref_strand = _carry_last2(pos_s, strand_s, is_rep)
+    rel = strand_s ^ ref_strand
+    pos64 = pos_s.to(torch.int64)
+    ref64 = ref_pos.to(torch.int64)
+    inv = torch.where(rel == 0, pos64 - ref64, pos64 + ref64)
+
+    token = (
+        (seq_s.to(torch.int64) << 33)
+        | (rel.to(torch.int64) << 32)
+        | (inv & 0xFFFFFFFF)
+    )
+    m1 = _mix64(_mix64(token + 1, _MIX_C1) ^ _mix64(token + 7, _MIX_C2), _MIX_C3)
+
+    # order-independent segment signature = wrapping int64 segment sum of
+    # the member mixes: cumsum with carry-filled segment boundaries
+    contrib = torch.where(kept, m1, 0)
+    cs64 = torch.cumsum(contrib, 0)
+    base64 = _carry_last2(cs64 - contrib, None, new_seg)
+    end64 = _carry_last2(cs64, None, is_end, reverse=True)
+    rep_sig1 = (end64 - base64) + count_here.to(torch.int64) * _MIX_C3
+    signed_pos = torch.where(rel == 0, pos_s + 1, -(pos_s + 1))
+    return seg_id, kept, is_rep, rep_sig1, seq_s, pos_s, signed_pos, ref_pos
+
+
+def device_mum_candidates(
+    keys: torch.Tensor,       # int64 [N] canonical keys (strand LSB)
+    seq_ids: torch.Tensor,    # int32 [N]
+    positions: torch.Tensor,  # int32 [N] 0-based window starts
+    seq_mask: torch.Tensor,   # int32 [n_seqs] 1 = genome participates
+    n_seqs: int,
+    cap: int,
+    min_multi: int = 2,
+) -> torch.Tensor:
+    """Unique multi-MUM candidate runs on the device.
+
+    Returns the packed int32 table [cap + 1, n_seqs + 2] of the JAX
+    package: row 0 holds n_runs; row 1 + r holds run r's signed 1-based
+    first-window starts per genome (0 = absent) and then [p0_min, p0_max].
+    Runs past `cap` are dropped (the caller re-runs with a larger cap)."""
+    assert min_multi >= 2, "representative compaction requires min_multi >= 2"
+    N = keys.shape[0]
+    dev = keys.device
+    (seg_id, kept, is_rep, rep_sig1, seq_s, pos_s, signed_pos, _) = _sig_phase(
+        keys, seq_ids, positions, seq_mask, n_seqs, min_multi
+    )
+
+    # group representatives by (signature, p0, segment): the JAX package
+    # sorts by the signature as two signed int32 keys (hi, lo), which is the
+    # order of the int64 signature with bit 31 flipped
+    rep = torch.nonzero(is_rep).squeeze(1)  # ascending = segment order
+    sig = rep_sig1[rep] ^ (1 << 31)
+    p0 = pos_s[rep]
+    order = torch.sort(p0, stable=True).indices
+    order = order[torch.sort(sig[order], stable=True).indices]
+    a_s, p0_s, segid_s = sig[order], p0[order], seg_id[rep][order]
+    R = a_s.shape[0]
+    cont = torch.zeros(R, dtype=torch.bool, device=dev)
+    cont[1:] = (a_s[1:] == a_s[:-1]) & (p0_s[1:] == p0_s[:-1] + 1)
+    run_start = ~cont
+    run_end = torch.cat([~cont[1:], torch.ones(1, dtype=torch.bool, device=dev)])[:R]
+    run_id = torch.cumsum(run_start, 0) - 1
+    n_runs = run_start.sum()
+
+    # drop semantics: out-of-range and unused rows aim at the spare row `cap`
+    # (only the spare row ever sees duplicate indices), sliced off below
+    row = torch.where(run_id < cap, run_id, cap)
+    span_tab = torch.full((cap + 1, 2), -1, dtype=torch.int32, device=dev)
+    zero = torch.zeros_like(row)
+    span_tab.index_put_((torch.where(run_start, row, cap), zero), p0_s)
+    span_tab.index_put_((torch.where(run_end, row, cap), zero + 1), p0_s)
+
+    # run-first segments -> run row, then scatter their kept components
+    seg_runfirst_row = torch.full((N + 1,), cap, dtype=torch.int64, device=dev)
+    seg_runfirst_row.index_put_(
+        (torch.where(run_start, segid_s.to(torch.int64), N),),
+        torch.where(run_start, row, cap),
+    )
+    k = torch.nonzero(kept).squeeze(1)
+    comp_row = seg_runfirst_row[seg_id[k].to(torch.int64)]
+    comp_tab = torch.zeros((cap + 1, n_seqs), dtype=torch.int32, device=dev)
+    comp_tab.index_put_((comp_row, seq_s[k].to(torch.int64)), signed_pos[k])
+
+    head = torch.zeros((1, n_seqs + 2), dtype=torch.int32, device=dev)
+    head[0, 0] = n_runs.to(torch.int32)
+    packed = torch.cat([comp_tab[:cap], span_tab[:cap]], dim=1)
+    return torch.cat([head, packed], dim=0)
+
+
+def _concat_device_smls(smls_dev):
+    """Concatenate per-genome (keys, positions) device tensors in genome
+    order, with the genome id of every entry."""
+    keys = torch.cat([k for k, _ in smls_dev])
+    pos = torch.cat([p for _, p in smls_dev])
+    seq_ids = torch.cat(
+        [
+            torch.full((k.shape[0],), i, dtype=torch.int32, device=k.device)
+            for i, (k, _) in enumerate(smls_dev)
+        ]
+    )
+    return keys, seq_ids, pos
+
+
+def find_multi_mums_device(
+    genomes: Sequence[Genome],
+    smls_dev,
+    min_multi: int = 2,
+    nway: bool = False,
+    seq_mask: Optional[np.ndarray] = None,
+    extend: bool = True,
+    seed_length: int = 0,
+    initial_cap: Optional[int] = None,
+) -> MatchList:
+    """Unique multi-MUM search on the device of the given mer lists.
+
+    smls_dev: per genome, (keys int64, positions int32) tensors in position
+    order (core.sml.build_mer_list_device).
+
+    On repeat-dense input the run count can exceed the capacity heuristic;
+    the search then re-runs with the cap raised to the next power of two
+    covering the actual count (never truncates).  initial_cap overrides the
+    heuristic (tests exercise the retry with a tiny cap).
+    """
+    n_seqs = len(genomes)
+    mask = np.ones(n_seqs, np.int32) if seq_mask is None else np.asarray(seq_mask, np.int32)
+    keys, seq_ids, pos = _concat_device_smls(smls_dev)
+    N = int(keys.shape[0])
+    timing.GLOBAL.add("k2_sort_entries", float(N))
+    if N == 0:
+        return MatchList.empty(n_seqs)
+    cap = initial_cap if initial_cap is not None else max(1 << 14, N >> 3)
+    ml = _candidates_with_retry(
+        keys, seq_ids, pos, torch.from_numpy(mask).to(keys.device), n_seqs, cap,
+        min_multi, seed_length,
+    )
+    if extend and len(ml):
+        t0 = time.perf_counter()
+        ml = extend_matches_maximal(ml, [g.codes for g in genomes])
+        timing.GLOBAL.add("k2_extend_s", time.perf_counter() - t0)
+    if nway:
+        ml = ml.multiplicity_filter(n_seqs)
+    return ml
+
+
+def _candidates_with_retry(
+    keys, seq_ids, pos, mask, n_seqs, cap, min_multi, seed_length
+) -> MatchList:
+    """Run device_mum_candidates, doubling cap on overflow, and decode."""
+    while True:
+        t0 = time.perf_counter()
+        table = device_mum_candidates(keys, seq_ids, pos, mask, n_seqs, cap, min_multi)
+        timing.GLOBAL.add("k2_dispatch_s", time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        n_runs = int(table[0, 0])
+        if n_runs <= cap:
+            head = table[: n_runs + 1].cpu().numpy()
+            timing.GLOBAL.add("k2_fetch_s", time.perf_counter() - t0)
+            break
+        # capacity overflow (repeat-dense input): raise to the covering power
+        # of two and re-run — truncating here would silently drop anchors
+        cap = 1 << int(n_runs - 1).bit_length()
+    return decode_mum_table(head, n_seqs, cap, seed_length)
+
+
+def decode_mum_table(
+    head: np.ndarray, n_seqs: int, cap: int, seed_length: int
+) -> MatchList:
+    """Decode a device_mum_candidates table (host side); `head` holds row 0
+    and at least the first n_runs run rows."""
+    r = int(head[0, 0])
+    if r == 0:
+        return MatchList.empty(n_seqs)
+    if r > cap:
+        warnings.warn(
+            f"multi-MUM run capacity overflow: {r} runs > cap {cap}; "
+            "result truncated (raise cap for highly repetitive inputs)"
+        )
+        r = cap
+    if r > head.shape[0] - 1:
+        raise ValueError(f"decode_mum_table: {r} runs but only {head.shape[0] - 1} rows")
+    packed = head[1 : r + 1]
+    comp, span = packed[:, :n_seqs], packed[:, n_seqs:]
+    ok = (span[:, 0] >= 0) & (span[:, 1] >= span[:, 0])
+    comp, span = comp[ok], span[ok]
+    run_len = span[:, 1] - span[:, 0]
+    lengths = run_len + seed_length
+    # rev comps stored at the run-first window slide left by run_len
+    starts = comp.astype(np.int64)
+    rev = starts < 0
+    starts[rev] = starts[rev] + run_len[np.nonzero(rev)[0]]
+    return MatchList(starts, lengths.astype(np.int64))
+
+
+def extend_matches_maximal(
+    match_list: MatchList, genome_codes: Sequence[np.ndarray], chunk: int = 64,
+    dedup: bool = True,
+) -> MatchList:
+    """Extend every match to base-level maximality and deduplicate.
+
+    Mirrors MemHash's seed extension: grow left/right in match space while
+    every participating genome agrees on the next column's base (ambiguity
+    codes never match).  Vectorized host pass over all matches at once,
+    `chunk` columns per iteration.  With ``dedup=False`` the output keeps a
+    1:1 row correspondence with the input (callers that carry per-match
+    metadata deduplicate themselves).
+    """
+    if len(match_list) == 0:
+        return match_list
+    starts = match_list.starts.copy()
+    lengths = match_list.lengths.copy()
+    n, n_seqs = starts.shape
+    # native host runtime fast path (C++; see native/mauve_native.cpp)
+    from mauvealigner_tpu_torch import native
+
+    mod = native.get()
+    if mod is not None:
+        codes_bytes = [np.ascontiguousarray(c, dtype=np.uint8).tobytes() for c in genome_codes]
+        s_out, l_out = mod.extend_matches(
+            codes_bytes,
+            np.ascontiguousarray(starts, dtype=np.int64).tobytes(),
+            np.ascontiguousarray(lengths, dtype=np.int64).tobytes(),
+            n,
+            n_seqs,
+        )
+        starts = np.frombuffer(s_out, np.int64).reshape(n, n_seqs).copy()
+        lengths = np.frombuffer(l_out, np.int64).copy()
+        out = MatchList(starts, lengths)
+        return out.dedup() if dedup else out
+    seq_lens = np.array([len(c) for c in genome_codes], dtype=np.int64)
+
+    def gather_col(offsets_from_end: np.ndarray, side: str) -> np.ndarray:
+        """Base value per (match, seq) at `offsets_from_end` columns beyond
+        the current match boundary; 255 = out of bounds / absent."""
+        vals = np.full((n, n_seqs), 255, np.uint8)
+        for j in range(n_seqs):
+            s = starts[:, j]
+            pres = s != NO_MATCH
+            fwd = s > 0
+            left0 = np.abs(s) - 1
+            if side == "right":
+                # match-space right: fwd reads left0+len-1+d; rev reads left0-d
+                idx = np.where(fwd, left0 + lengths - 1 + offsets_from_end, left0 - offsets_from_end)
+            else:
+                # match-space left: fwd reads left0-d; rev reads left0+len-1+d
+                idx = np.where(fwd, left0 - offsets_from_end, left0 + lengths - 1 + offsets_from_end)
+            ok = pres & (idx >= 0) & (idx < seq_lens[j])
+            v = np.full(n, 255, np.uint8)
+            codes_j = genome_codes[j]
+            v[ok] = codes_j[idx[ok]]
+            flip = ok & ~fwd
+            v[flip & (v < 4)] = 3 - v[flip & (v < 4)]
+            vals[:, j] = v
+        return vals
+
+    for side in ("right", "left"):
+        active = np.ones(n, dtype=bool)
+        guard = 0
+        while active.any() and guard < 10**6:
+            guard += 1
+            ext = np.zeros(n, dtype=np.int64)
+            full = np.zeros(n, dtype=bool)
+            # agreement run length within the next `chunk` columns
+            agree_so_far = active.copy()
+            for d in range(1, chunk + 1):
+                col = gather_col(np.full(n, d, np.int64), side)
+                pres = starts != NO_MATCH
+                ref = col[np.arange(n), np.argmax(pres, axis=1)]
+                match_col = (
+                    (ref < 4)
+                    & np.all((col == ref[:, None]) | ~pres, axis=1)
+                )
+                agree_so_far &= match_col
+                ext = np.where(agree_so_far, d, ext)
+                full = agree_so_far & (d == chunk)
+                if not agree_so_far.any():
+                    break
+            grow = ext > 0
+            if grow.any():
+                fwd = starts > 0
+                rev = starts < 0
+                ext_b = np.broadcast_to(ext[:, None], starts.shape)
+                if side == "right":
+                    # reverse comps grow leftward in genome coords: |start|
+                    # decreases, i.e. the negative start moves toward zero
+                    sel = rev & grow[:, None]
+                    starts[sel] += ext_b[sel]
+                else:
+                    sel = fwd & grow[:, None]
+                    starts[sel] -= ext_b[sel]
+                lengths += ext
+            active = full
+    out = MatchList(starts, lengths)
+    return out.dedup() if dedup else out
+
+
+# ---------------------------------------------------------------------------
+# Batched multi-gap recursion search: all gaps of a recursion round are
+# searched in one pass.  Every gap's per-genome regions are laid out back to
+# back in a flat coordinate space with one CODE_N separator after each
+# region (separators make boundary-crossing seed windows invalid and stop
+# base-level extension at region edges); each window's canonical key is
+# tagged with its gap id above the mer bits, so the global sort groups
+# (gap, mer) and runs never span gaps.
+# ---------------------------------------------------------------------------
+
+
+def _gap_flat_mer_entries(
+    codes_flat: torch.Tensor,  # uint8 [n_seqs * cpad] genome codes, CODE_N padded
+    specs: torch.Tensor,       # int64 [R, 5] (left0, len, strand, seq, gap)
+    offsets: Tuple[int, ...],
+    pattern_len: int,
+    tag_shift: int,
+    F: int,
+    n_seqs: int,
+):
+    """Flat multi-gap window extraction + mer packing + gap tagging.
+
+    Region r occupies flat slots [fs[r], fs[r] + len_r) followed by one
+    CODE_N separator slot; reverse-strand regions are extracted
+    reverse-complemented so every flat region reads relatively forward.
+    Returns (tagged keys int64 [F - L + 1], seq ids int32, flat positions
+    int32) for device_mum_candidates."""
+    dev = codes_flat.device
+    cpad = codes_flat.shape[0] // n_seqs
+    R = specs.shape[0]
+    left0, ln, strand, seq, gap = (specs[:, c] for c in range(5))
+    fs = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev), torch.cumsum(ln + 1, 0)])
+    T = fs[R]
+    f = torch.arange(F, dtype=torch.int64, device=dev)
+    row = (torch.searchsorted(fs, f, right=True) - 1).clamp(0, R - 1)
+    within = f - fs[row]
+    pad_cell = (within >= ln[row]) | (f >= T)
+    fwd = strand[row] > 0
+    idx = left0[row] + torch.where(fwd, within, ln[row] - 1 - within)
+    idx = idx.clamp(0, cpad - 1)
+    base = codes_flat[seq[row] * cpad + idx].to(torch.int64)
+    base = torch.where(fwd, base, torch.where(base < CODE_N, 3 - base, base))
+    base = torch.where(pad_cell, CODE_N, base)
+    keys = merops.pack_canonical_mers(base, offsets, pattern_len)
+    npos = keys.shape[0]
+    # spaced seeds have don't-care slots: a window can straddle the CODE_N
+    # separator without reading it, mixing content from two regions.  Any
+    # window whose first and last cells fall in different rows is invalid.
+    end_row = row[torch.arange(npos, device=dev) + (pattern_len - 1)]
+    keys = torch.where(end_row != row[:npos], INVALID_KEY, keys)
+    gid = gap[row[:npos]]
+    keys = torch.where(keys == INVALID_KEY, INVALID_KEY, keys | (gid << tag_shift))
+    return keys, seq[row[:npos]].to(torch.int32), f[:npos].to(torch.int32)
+
+
+def _gap_spec_rows(gap_specs: np.ndarray, n_seqs: int) -> Tuple[np.ndarray, np.ndarray]:
+    """[G, n, 3] (left, right, strand) 1-based inclusive -> flat spec rows
+    [R, 5] int32 (left0, len, strand, seq, gap) and the host fs offsets."""
+    G = gap_specs.shape[0]
+    left = gap_specs[:, :, 0]
+    right = gap_specs[:, :, 1]
+    strand = gap_specs[:, :, 2]
+    ln = np.maximum(0, right - left + 1)
+    R = G * n_seqs
+    rows = np.zeros((R, 5), np.int32)
+    rows[:, 0] = np.maximum(0, left - 1).reshape(-1)
+    rows[:, 1] = ln.reshape(-1)
+    rows[:, 2] = np.where(strand.reshape(-1) == 0, 1, strand.reshape(-1))
+    rows[:, 3] = np.tile(np.arange(n_seqs, dtype=np.int32), G)
+    rows[:, 4] = np.repeat(np.arange(G, dtype=np.int32), n_seqs)
+    fs = np.concatenate([[0], np.cumsum(rows[:, 1].astype(np.int64) + 1)])
+    return rows, fs
+
+
+def _stacked_codes_device(genomes: Sequence[Genome], pattern_len: int, device):
+    """Every genome's codes in one flat uint8 device tensor [n * cpad],
+    CODE_N padded (cached on the first genome for reuse across rounds)."""
+    cpad = max(len(g) for g in genomes) + pattern_len
+    key = (tuple(id(g) for g in genomes), cpad, str(device))
+    holder = genomes[0]
+    cached = getattr(holder, "_flat_stack_cache", None)
+    # the cache value holds strong references to the genomes so an id() in
+    # the key can never belong to a freed-and-reallocated object
+    if cached is not None and cached[0] == key:
+        return cached[1], cpad
+    flat = np.full(len(genomes) * cpad, CODE_N, np.uint8)
+    for i, g in enumerate(genomes):
+        flat[i * cpad : i * cpad + len(g)] = g.codes
+    flat_dev = torch.from_numpy(flat).to(device)
+    holder._flat_stack_cache = (key, flat_dev, tuple(genomes))
+    return flat_dev, cpad
+
+
+def _flat_codes_host(
+    genomes: Sequence[Genome], rows: np.ndarray, fs: np.ndarray
+) -> np.ndarray:
+    """Host mirror of the flat region layout (for base-level extension)."""
+    total = int(fs[-1])
+    flat = np.full(total, CODE_N, np.uint8)
+    for r in range(rows.shape[0]):
+        l0, lnr, st, s, _ = (int(v) for v in rows[r])
+        if lnr <= 0:
+            continue
+        seg = genomes[s].codes[l0 : l0 + lnr]
+        if st < 0:
+            seg = seg[::-1]
+            seg = np.where(seg < CODE_N, 3 - seg, seg).astype(np.uint8)
+        flat[fs[r] : fs[r] + lnr] = seg
+    return flat
+
+
+def find_gap_mums_batched(
+    genomes: Sequence[Genome],
+    gap_specs: np.ndarray,  # int64 [G, n, 3] (left, right, strand) 1-based
+    seed,
+    device,
+    extend: bool = True,
+) -> Tuple[np.ndarray, MatchList]:
+    """Unique multi-MUM search over many inter-anchor gaps in one pass on
+    `device`.  Returns (gap_ids int64 [m], MatchList in genome coordinates);
+    rows keep >= 2 components (callers apply their multiplicity policy)."""
+    n = len(genomes)
+    G = gap_specs.shape[0]
+    if G == 0:
+        return np.zeros(0, np.int64), MatchList.empty(n)
+    tag_shift = 2 * seed.weight + 1
+    assert (G << tag_shift) < (1 << 62), "gap tag would overflow the key space"
+    rows, fs = _gap_spec_rows(np.asarray(gap_specs, np.int64), n)
+    R = rows.shape[0]
+    F = int(fs[-1]) + seed.length
+    codes_flat, _ = _stacked_codes_device(genomes, seed.length, device)
+    offsets = tuple(int(o) for o in seed.offsets)
+    keys, seq_ids, pos = _gap_flat_mer_entries(
+        codes_flat, torch.from_numpy(rows.astype(np.int64)).to(device),
+        offsets, seed.length, tag_shift, F, n,
+    )
+    N = int(keys.shape[0])
+    timing.GLOBAL.add("k2_sort_entries", float(N))
+    mask = torch.ones(n, dtype=torch.int32, device=keys.device)
+    cap = max(1 << 14, N >> 3)
+    t0 = time.perf_counter()
+    ml = _candidates_with_retry(keys, seq_ids, pos, mask, n, cap, 2, seed.length)
+    timing.GLOBAL.add("recursion_kernel_s", time.perf_counter() - t0)
+    if len(ml) == 0:
+        return np.zeros(0, np.int64), MatchList.empty(n)
+    if extend:
+        t0 = time.perf_counter()
+        flat_host = _flat_codes_host(genomes, rows, fs)
+        ml = extend_matches_maximal(ml, [flat_host] * n)
+        timing.GLOBAL.add("recursion_extend_s", time.perf_counter() - t0)
+    # map flat coordinates back to (gap, genome coordinates)
+    starts = ml.starts
+    lengths = ml.lengths
+    pres = starts != NO_MATCH
+    flatpos = np.where(pres, np.abs(starts) - 1, 0)
+    rowr = (
+        np.searchsorted(fs, flatpos.reshape(-1), side="right") - 1
+    ).reshape(starts.shape)
+    specsm = rows[np.clip(rowr, 0, R - 1)]  # [m, n, 5]
+    gapm = specsm[:, :, 4].astype(np.int64)
+    seqm = specsm[:, :, 3]
+    cols = np.broadcast_to(np.arange(n, dtype=np.int32), starts.shape)
+    gap_ref = gapm[np.arange(len(ml)), np.argmax(pres, axis=1)]
+    consistent = np.all(
+        (~pres) | ((seqm == cols) & (gapm == gap_ref[:, None])), axis=1
+    )
+    l0 = specsm[:, :, 0].astype(np.int64)
+    lnr = specsm[:, :, 1].astype(np.int64)
+    st = specsm[:, :, 2].astype(np.int64)
+    within = flatpos - fs[np.clip(rowr, 0, R - 1)]
+    Lm = lengths[:, None]
+    g_left0 = np.where(st > 0, l0 + within, l0 + lnr - within - Lm)
+    g_fwd = np.where(st > 0, starts > 0, starts < 0)
+    new_starts = np.where(g_fwd, g_left0 + 1, -(g_left0 + 1))
+    new_starts[~pres] = NO_MATCH
+    out = MatchList(new_starts[consistent], lengths[consistent])
+    return gap_ref[consistent], out

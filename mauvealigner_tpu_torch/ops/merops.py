@@ -1,0 +1,69 @@
+"""K1: spaced-mer packing and strand canonicalization, in torch.
+
+Port of mauvealigner_tpu/ops/merops.py (pack_canonical_mers, build_mer_list);
+libMems SortedMerList/DNAFileSML construction in the reference
+(src/mauveAligner.cpp:365, src/progressiveMauve.cpp:447).
+
+Semantics reproduced:
+  * a mer is the concatenation of the 2-bit codes at the seed's care
+    positions within an L-wide window;
+  * each window is strand-canonicalized: the smaller of (forward mer,
+    reverse-complement mer) is stored, shifted left one bit, with the LSB set
+    iff the reverse-complement orientation won (``GetMer(pos) & 0x1``,
+    src/SeedMatchEnumerator.h:133); palindromic seed patterns only;
+  * windows with an ambiguity code at a care position get INVALID_KEY.
+
+For a palindromic pattern with care offsets o_0<...<o_{w-1}:
+  fwd(i) = sum_j code[i+o_j] << 2(w-1-j)
+  rc(i)  = sum_j (3 - code[i+o_j]) << 2j
+
+The JAX package's 2-bit packed upload and padding-bucket ladders existed for
+its host link and its compile cache; here codes upload as bytes and every
+array has its natural length.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import torch
+
+from mauvealigner_tpu_torch.genome.sequence import CODE_N
+
+INVALID_KEY = 2**62  # sorts after every valid key: valid keys use 2w+1 <= 61
+# bits (MAX_SEED_WEIGHT 30, seeds.py)
+
+
+def pack_canonical_mers(
+    codes: torch.Tensor, offsets: Sequence[int], pattern_len: int
+) -> torch.Tensor:
+    """codes: integer [P] (2-bit codes, CODE_N for ambiguity/padding) ->
+    canonical keys int64 [P-L+1].
+
+    Key layout: (min(fwd, rc) << 1) | (1 if rc < fwd else 0); invalid windows
+    get INVALID_KEY.
+    """
+    n_pos = codes.shape[0] - pattern_len + 1
+    w = len(offsets)
+    fwd = torch.zeros(n_pos, dtype=torch.int64, device=codes.device)
+    rc = torch.zeros_like(fwd)
+    invalid = torch.zeros(n_pos, dtype=torch.bool, device=codes.device)
+    for j, off in enumerate(offsets):
+        c = codes[off : off + n_pos].to(torch.int64)
+        invalid |= c >= CODE_N
+        fwd += c << (2 * (w - 1 - j))
+        rc += (3 - c) << (2 * j)
+    use_rc = rc < fwd
+    key = (torch.where(use_rc, rc, fwd) << 1) | use_rc.to(torch.int64)
+    return torch.where(invalid, torch.full_like(key, INVALID_KEY), key)
+
+
+def build_mer_list(
+    codes: torch.Tensor, offsets: Sequence[int], pattern_len: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1 pack without a sort: (keys int64 [n_pos], positions int32 [n_pos]),
+    in position order, INVALID entries interspersed.  The multi-MUM search
+    sorts the concatenated lists of all genomes itself."""
+    keys = pack_canonical_mers(codes, offsets, pattern_len)
+    positions = torch.arange(keys.shape[0], dtype=torch.int32, device=codes.device)
+    return keys, positions

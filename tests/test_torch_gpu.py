@@ -1,0 +1,100 @@
+"""The port's CUDA kernels and its GPU main path, against the plain-torch
+versions (exact: DP scores are integer-valued f32, ops and XMFA are bytes).
+
+Every test here needs an NVIDIA GPU and skips without one.  The file
+imports neither jax nor the JAX package, so it runs on a machine with only
+torch (tests/conftest.py imports jax, hence --noconftest):
+
+    python -m pytest --noconftest tests/test_torch_gpu.py -m gpu
+"""
+
+import io
+
+import numpy as np
+import pytest
+import torch
+
+from mauvealigner_tpu_torch.genome.sequence import Genome
+from mauvealigner_tpu_torch.models.aligner import AlignerOptions, MauveAligner
+from mauvealigner_tpu_torch.ops import dp, gotoh_cuda
+from mauvealigner_tpu_torch.utils import simulate
+
+torch.set_num_threads(1)
+
+pytestmark = pytest.mark.gpu
+
+GO, GE = dp.DEFAULT_GAP_OPEN, dp.DEFAULT_GAP_EXTEND
+
+
+@pytest.fixture
+def rng():
+    return np.random.default_rng(37)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    return torch.device("cuda", 0)
+
+
+def _batch(rng, B, side, dev):
+    la = rng.integers(1, side + 1, size=B).astype(np.int32)
+    lb = rng.integers(1, side + 1, size=B).astype(np.int32)
+    la[:4], lb[:4] = (1, 0, 5, side), (1, 7, 0, side)
+    ca = np.full((B, side), 255, np.uint8)
+    cb = np.full((B, side), 255, np.uint8)
+    for k in range(B):
+        a = rng.integers(0, 4, size=la[k])
+        b = np.resize(a, lb[k]) if (k % 2 and la[k]) else rng.integers(0, 4, size=lb[k])
+        ca[k, : la[k]] = a
+        cb[k, : lb[k]] = np.where(rng.random(lb[k]) < 0.2, rng.integers(0, 5, size=lb[k]), b)
+    return [torch.from_numpy(x).to(dev) for x in (ca, cb, la, lb)]
+
+
+@pytest.mark.parametrize("side", [16, 64, 256, 1024])
+def test_kernels_match_plain(rng, cuda_device, side):
+    ca, cb, la, lb = _batch(rng, 12, side, cuda_device)
+    sub = torch.from_numpy(dp.HOXD70.copy()).to(cuda_device)
+    before = dict(gotoh_cuda.LAUNCHES)
+    s_k, d_k = gotoh_cuda.gotoh_forward_codes(ca, cb, la, lb, sub, GO, GE)
+    s_p, d_p = dp.gotoh_forward_codes_ref(ca, cb, la, lb, sub, GO, GE)
+    o_k, c_k = gotoh_cuda.gotoh_traceback(d_p, la, lb)
+    o_p, c_p = dp.gotoh_traceback_ref(d_p, la, lb)
+    torch.cuda.synchronize()
+    assert torch.equal(s_k, s_p) and torch.equal(d_k, d_p)
+    assert torch.equal(o_k, o_p) and torch.equal(c_k, c_p)
+    assert gotoh_cuda.LAUNCHES["gotoh_forward_codes"] == before["gotoh_forward_codes"] + 1
+    assert gotoh_cuda.LAUNCHES["gotoh_traceback"] == before["gotoh_traceback"] + 1
+
+
+def test_kernel_rejects_sides_past_shared_memory(cuda_device):
+    big = gotoh_cuda.MAX_SIDE + 1
+    z = torch.zeros((1, big), dtype=torch.uint8, device=cuda_device)
+    n = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+    sub = torch.from_numpy(dp.HOXD70.copy()).to(cuda_device)
+    with pytest.raises(ValueError, match="shared-memory"):
+        gotoh_cuda.gotoh_forward_codes(z, z, n, n, sub, GO, GE)
+
+
+def test_aligner_gpu_matches_cpu(rng, cuda_device):
+    """A pair with diverged stretches (recursion and real DP work) and an
+    inversion: byte-identical XMFA from the GPU and CPU paths."""
+    anc = simulate.random_genome(rng, 20000)
+    der, _ = simulate.evolve(anc, rng, sub_rate=0.02, ins_rate=0.001, del_rate=0.001)
+    c = der.codes.copy()
+    for a, b in ((2000, 2600), (5000, 5800), (12000, 12700)):
+        hit = rng.random(b - a) < 0.45
+        c[a:b][hit] = (c[a:b][hit] + rng.integers(1, 4, size=int(hit.sum()))) % 4
+    c[15000:17000] = (3 - c[15000:17000])[::-1]
+    genomes = [anc, Genome(np.frombuffer(b"ACGTN", np.uint8)[c], name="der")]
+    out = {}
+    for dev in ("cpu", str(cuda_device)):
+        gotoh_cuda.reset_launches()
+        res = MauveAligner(AlignerOptions(seed_size=11, device=dev)).align(genomes)
+        buf = io.StringIO()
+        res.interval_list.write_xmfa(buf)
+        out[dev] = (buf.getvalue(), dict(gotoh_cuda.LAUNCHES))
+    assert out["cpu"][0] == out[str(cuda_device)][0]
+    assert out["cpu"][1] == {"gotoh_forward_codes": 0, "gotoh_traceback": 0}
+    assert min(out[str(cuda_device)][1].values()) > 0
