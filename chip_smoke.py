@@ -1,6 +1,11 @@
 """Chip check of the PyTorch port: builds the CUDA kernels, holds each
-against its plain-torch version on the card, and runs config 1 (two 1 Mbp
-genomes, bench.py) through MauveAligner on the GPU.
+against its plain-torch version on the card, and drives the port's paths on
+the GPU: config 1 (two 1 Mbp genomes, bench.py) through MauveAligner,
+BASELINE config 3 (9 x 250 kbp, scripts/bench_configs.py) through
+ProgressiveMauve (the extant branch of its gate), and 9 x 1 Mbp
+enterobacteria-like genomes through ProgressiveMauve (the tree-progressive
+branch).  Each run is held to the JAX package's outputs recorded in
+mauvealigner_tpu_torch/data/*_golden.json.
 
 Usage (from the repository root, one NVIDIA GPU):  python3 chip_smoke.py
 
@@ -23,17 +28,22 @@ import torch
 
 from mauvealigner_tpu_torch import native
 from mauvealigner_tpu_torch.models.aligner import AlignerOptions, MauveAligner
+from mauvealigner_tpu_torch.models.progressive import ProgressiveMauve, ProgressiveOptions
 from mauvealigner_tpu_torch.ops import _build, dp, gotoh_cuda
-from mauvealigner_tpu_torch.utils import simulate, timing
+from mauvealigner_tpu_torch.utils import digest, simulate, timing
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-GOLDEN = os.path.join(ROOT, "mauvealigner_tpu_torch", "data", "config1_golden.json")
+DATA = os.path.join(ROOT, "mauvealigner_tpu_torch", "data")
 SIDES = (16, 32, 64, 128, 256, 512, 1024, 2048, 4096)
 TIMED_SIDES = (256, 4096)
+# the TPU kernel has two input modes; each is its own CUDA kernel here
 KERNELS = {
     "gotoh_forward_codes": "mauvealigner_tpu/ops/dp_pallas.py:182",
+    "gotoh_forward_profiles": "mauvealigner_tpu/ops/dp_pallas.py:182",
     "gotoh_traceback": "mauvealigner_tpu/ops/dp.py:286",
 }
+DIGEST_KEYS = ("branch", "guide_tree", "n_lcbs", "n_intervals",
+               "xmfa_sha256", "backbone_sha256", "bbcols_sha256")
 
 
 def say(msg: str) -> None:
@@ -72,6 +82,63 @@ def random_batch(rng, B: int, side: int):
     return ca, cb, la, lb
 
 
+def random_profile_batch(rng, B: int, side: int):
+    """uint8 count profiles of 1-9 rows per side (gap cells excluded, a few
+    ambiguity codes), zero rows past each length, with random_batch's
+    lengths and edge cases; even problems pair related sides."""
+    ca, cb, la, lb = random_batch(rng, B, side)
+    pa = np.zeros((B, side, 5), np.uint8)
+    pb = np.zeros((B, side, 5), np.uint8)
+    for out, codes, lens in ((pa, ca, la), (pb, cb, lb)):
+        for k in range(B):
+            n = int(lens[k])
+            rows = int(rng.integers(1, 10))
+            cc = np.repeat(codes[k, :n][None, :].astype(np.int64), rows, axis=0)
+            mut = rng.random((rows, n)) < 0.1
+            cc[mut] = rng.integers(0, 6, size=int(mut.sum()))  # 5 = gap
+            for r in range(rows):
+                np.add.at(out[k], (np.arange(n)[cc[r] < 5], cc[r][cc[r] < 5]), 1)
+    return pa, pb, la, lb
+
+
+def check_profile_kernel(dev) -> dict:
+    """The profile kernel against its plain-torch version at every bucket
+    side, normalize off and on: identical decision bytes, scores and
+    tracebacks; times at TIMED_SIDES (normalize off, the closure's mode)."""
+    rng = np.random.default_rng(2025)
+    sub = torch.from_numpy(dp.HOXD70.copy()).to(dev)
+    go, ge = dp.DEFAULT_GAP_OPEN, dp.DEFAULT_GAP_EXTEND
+    stats = {"max_abs_err": 0.0}
+    for side in SIDES:
+        B = 64 if side <= 512 else (16 if side <= 1024 else 10)
+        pa_h, pb_h, la_h, lb_h = random_profile_batch(rng, B, side)
+        pa = torch.from_numpy(pa_h).to(dev).to(torch.float32)
+        pb = torch.from_numpy(pb_h).to(dev).to(torch.float32)
+        la, lb = torch.from_numpy(la_h).to(dev), torch.from_numpy(lb_h).to(dev)
+        for normalize in (False, True):
+            s_k, dec_k = gotoh_cuda.gotoh_forward_profiles(pa, pb, la, lb, sub, go, ge, normalize)
+            s_p, dec_p = dp.gotoh_forward_profiles_ref(pa, pb, la, lb, sub, go, ge, normalize)
+            ops_k, cnt_k = gotoh_cuda.gotoh_traceback(dec_k, la, lb)
+            ops_p, cnt_p = dp.gotoh_traceback_ref(dec_p, la, lb)
+            torch.cuda.synchronize()
+            err = float((s_k - s_p).abs().max())
+            same_dec = bool(torch.equal(dec_k, dec_p))
+            tb_ok = torch.equal(ops_k, ops_p) and torch.equal(cnt_k, cnt_p)
+            say(f"profile kernel-vs-plain side={side} B={B} normalize={normalize}: "
+                f"scores max|diff|={err}, dec bytes {'identical' if same_dec else 'DIFFER'}, "
+                f"traceback {'equal' if tb_ok else 'DIFFERS'}")
+            if not (err == 0.0 and same_dec and tb_ok):
+                raise SystemExit(f"profile kernel disagrees with its plain version at side {side}")
+            stats["max_abs_err"] = max(stats["max_abs_err"], err)
+        if side in TIMED_SIDES:
+            reps_k = 20 if side <= 512 else 5
+            f_k = cuda_ms(lambda: gotoh_cuda.gotoh_forward_profiles(pa, pb, la, lb, sub, go, ge), reps_k)
+            f_p = cuda_ms(lambda: dp.gotoh_forward_profiles_ref(pa, pb, la, lb, sub, go, ge), 1)
+            say(f"time side={side} B={B}: gotoh_forward_profiles kernel {f_k:.4f} ms, plain {f_p:.4f} ms")
+            stats.update(ms=f_k, plain_ms=f_p, bucket=side, batch=B)
+    return stats
+
+
 def cuda_ms(fn, reps: int) -> float:
     fn()  # warm
     torch.cuda.synchronize()
@@ -91,7 +158,7 @@ def check_kernels(dev) -> dict:
     rng = np.random.default_rng(2024)
     sub = torch.from_numpy(dp.HOXD70.copy()).to(dev)
     go, ge = dp.DEFAULT_GAP_OPEN, dp.DEFAULT_GAP_EXTEND
-    stats = {k: {"max_abs_err": 0.0} for k in KERNELS}
+    stats = {k: {"max_abs_err": 0.0} for k in ("gotoh_forward_codes", "gotoh_traceback")}
     for side in SIDES:
         B = 64 if side <= 512 else (16 if side <= 1024 else 10)
         ca, cb, la, lb = (torch.from_numpy(x).to(dev) for x in random_batch(rng, B, side))
@@ -130,7 +197,7 @@ def check_kernels(dev) -> dict:
 def config1(dev) -> dict:
     """bench.py config 1 through MauveAligner on the card, held to the
     JAX package's outputs recorded in the golden file."""
-    with open(GOLDEN) as fh:
+    with open(os.path.join(DATA, "config1_golden.json")) as fh:
         golden = json.load(fh)
     rng = np.random.default_rng(37)
     anc = simulate.random_genome(rng, 1_000_000)
@@ -167,14 +234,96 @@ def config1(dev) -> dict:
         for k, v in got.items():
             if v != golden[k]:
                 raise SystemExit(f"config1 {label}: {k} = {v}, golden {golden[k]}")
-        for k, n in launches.items():
-            if n <= 0:
+        for k in ("gotoh_forward_codes", "gotoh_traceback"):
+            if launches[k] <= 0:
                 raise SystemExit(f"config1 {label}: kernel {k} was never launched")
         runs[label] = {"seconds": secs, "launches": launches}
         if label == "warm":
             say("per-phase report (warm run):\n" + timing.GLOBAL.report().rstrip())
     say(f"peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
     return runs
+
+
+def progressive_run(genomes, golden: dict, label: str, dev, need: tuple) -> dict:
+    """One ProgressiveMauve.align on the card with every launch count set to
+    0 just before it; held to the golden digest; returns seconds, launches,
+    the result and its digest."""
+    pm = ProgressiveMauve(ProgressiveOptions(device=str(dev)))
+    timing.GLOBAL.reset()
+    gotoh_cuda.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = pm.align(genomes)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(gotoh_cuda.LAUNCHES)
+    branch = "tree" if "tree_progressive" in timing.GLOBAL.phases else "extant"
+    got = digest.progressive_digest(res, branch, golden["bbcols_name"])
+    say(f"{label}: {secs:.3f} s, {json.dumps(got)}, launches {launches}, "
+        f"dp_cells {timing.GLOBAL.counters.get('dp_cells', 0):.0f}, "
+        f"dp_calls {timing.GLOBAL.counters.get('dp_calls', 0):.0f}")
+    say(f"{label} per-phase report:\n" + timing.GLOBAL.report().rstrip())
+    say(f"{label} peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+    for k in DIGEST_KEYS:
+        if got[k] != golden[k]:
+            raise SystemExit(f"{label}: {k} = {got[k]!r}, golden {golden[k]!r}")
+    for k in need:
+        if launches[k] <= 0:
+            raise SystemExit(f"{label}: kernel {k} was never launched")
+    return {"seconds": secs, "launches": launches, "result": res, "digest": got}
+
+
+def load_golden(name: str, genomes) -> dict:
+    with open(os.path.join(DATA, name)) as fh:
+        golden = json.load(fh)
+    hashes = digest.genome_sha256(genomes)
+    if hashes != golden["genome_sha256"]:
+        raise SystemExit(f"{name}: genomes differ from the golden file's "
+                         "(numpy's generator stream differs on this machine)")
+    return golden
+
+
+def config3(dev) -> dict:
+    """BASELINE config 3 (scripts/bench_configs.py config3: 9 x 250 kbp,
+    seed 37, sub 0.02, indel 0.001), default options, cold and warm: the
+    extant branch of the gate, closure ordered by the guide tree."""
+    rng = np.random.default_rng(37)
+    anc = simulate.random_genome(rng, 250_000)
+    genomes = [anc]
+    for _ in range(8):
+        d, _ = simulate.evolve(anc, rng, sub_rate=0.02, ins_rate=0.001, del_rate=0.001)
+        genomes.append(d)
+    golden = load_golden("config3_golden.json", genomes)
+    say("config3 genomes match the golden sha256")
+    need = ("gotoh_forward_codes", "gotoh_forward_profiles", "gotoh_traceback")
+    runs = {}
+    for label in ("cold", "warm"):
+        r = progressive_run(genomes, golden, f"config3 {label}", dev, need)
+        runs[label] = {"seconds": r["seconds"], "launches": r["launches"]}
+    return runs
+
+
+def tree_branch(dev) -> dict:
+    """9 x 1 Mbp enterobacteria-like genomes (the generator of
+    scripts/bench_enterobacteria.py), default options: the gate must take the
+    tree-progressive branch; each (0, i) pair's sn / ppv against the
+    simulation truths must equal the golden's."""
+    t0 = time.perf_counter()
+    genomes, truths = simulate.enterobacteria_like(1_000_000, 9, 0.08)
+    say(f"tree genomes built in {time.perf_counter() - t0:.1f} s (host)")
+    golden = load_golden("tree_golden.json", genomes)
+    r = progressive_run(
+        genomes, golden, "tree", dev, ("gotoh_forward_codes", "gotoh_traceback")
+    )
+    if r["digest"]["branch"] != "tree":
+        raise SystemExit("tree: the gate did not choose the tree-progressive branch")
+    acc = digest.pair_accuracy(r["result"].interval_list, truths, [len(g) for g in genomes])
+    for a in acc:
+        say(f"tree pair {a['pair']}: sn {a['sn']:.6f} ppv {a['ppv']:.6f}")
+    if acc != golden["accuracy"]:
+        raise SystemExit(f"tree: accuracy {acc} differs from the golden {golden['accuracy']}")
+    return {"seconds": r["seconds"], "launches": r["launches"]}
 
 
 def main() -> int:
@@ -196,7 +345,10 @@ def main() -> int:
             say(f"  ptxas: {line.strip()}")
 
     stats = check_kernels(dev)
+    stats["gotoh_forward_profiles"] = check_profile_kernel(dev)
     runs = config1(dev)
+    runs3 = config3(dev)
+    runs_tree = tree_branch(dev)
 
     kernels = []
     for name, replaces in KERNELS.items():
@@ -206,7 +358,14 @@ def main() -> int:
             "route": "cuda",
             "source": "mauvealigner_tpu_torch/csrc/gotoh.cu",
             "replaces": replaces,
-            "launches": runs["cold"]["launches"][name],
+            # launches of the progressive main path (config 3, cold run);
+            # each path's own counts beside it
+            "launches": runs3["cold"]["launches"][name],
+            "launches_by_path": {
+                "config1": runs["cold"]["launches"][name],
+                "config3": runs3["cold"]["launches"][name],
+                "tree": runs_tree["launches"][name],
+            },
             "max_abs_err": s["max_abs_err"],
             "ms": s["ms"],
             "plain_ms": s["plain_ms"],

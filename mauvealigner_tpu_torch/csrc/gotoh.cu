@@ -1,5 +1,5 @@
-// K3 Gotoh affine-gap global alignment on Hopper (sm_90a): forward pass and
-// traceback for batches of code pairs.  Plain C interface, loaded with ctypes
+// K3 Gotoh affine-gap global alignment on Hopper (sm_90a): forward pass
+// (code pairs or count profiles) and traceback, batched.  Plain C interface, loaded with ctypes
 // by ops/gotoh_cuda.py; every launcher returns cudaGetLastError().
 //
 // Decision bytes are laid out by anti-diagonal, dec[b][d][i] = cell
@@ -17,50 +17,35 @@ namespace {
 
 constexpr float kNeg = -1e9f;
 
-// gotoh_forward_codes_kernel replaces the TPU kernel
-// mauvealigner_tpu/ops/dp_pallas.py::_kernel (driven by
-// gotoh_forward_pallas), whose arithmetic order and tie rules it keeps:
+// The forward recurrence both input modes share (gotoh_forward_diagonals)
+// replaces the TPU kernel mauvealigner_tpu/ops/dp_pallas.py::_kernel (driven
+// by gotoh_forward_pallas), whose arithmetic order and tie rules it keeps:
 // E = max(H[i][j-1] + (go+ge), E[i][j-1] + ge), open on >=; F likewise from
 // row i-1; H = diag, then F only if strictly greater, then E only if
-// strictly greater.  The substitution score is looked up from the codes per
-// cell (no sheared [M, N] score matrix) and accumulates in f32.
+// strictly greater.  Lane 0 scores NEG, cells off the band (j < 1 or j > N)
+// score 0; the substitution score of a live cell comes from the Score
+// provider, per cell (no sheared [M, N] score matrix), and accumulates in
+// f32.
 //
 // One CTA per problem walks all M+N anti-diagonals with one __syncthreads()
-// each; thread t owns lanes i = t, t + blockDim.x, ...  The TPU kernel
-// carried H/E/F across its sequential grid axis in VMEM scratch; here that
-// carry is the in-block diagonal loop over shared memory: three rotating H
-// rows (diagonals d, d-1, d-2) and ping-pong E and F rows, 7 x 4 x (M+1)
-// bytes (112 KB at M = 4096, 224 KB at 8192).
+// each; thread t owns lanes i = t + k * blockDim.x, k < Score::kLanes.  The
+// TPU kernel carried H/E/F across its sequential grid axis in VMEM scratch;
+// here that carry is the in-block diagonal loop over shared memory: three
+// rotating H rows (diagonals d, d-1, d-2) and ping-pong E and F rows,
+// 7 x 4 x (M+1) bytes (112 KB at M = 4096, 224 KB at 8192).
 //
 // Bound on this card: the serial chain of M+N dependent diagonals (one
 // barrier each, a handful of lanes per thread) and the stores of the
 // (M+N+1)(M+1) decision bytes.  Later work: a warp per problem for buckets
-// <= 64 (no block barrier), and decision bytes kept in shared memory with a
-// fused traceback so they never reach device memory.
-__global__ void gotoh_forward_codes_kernel(
-    const uint8_t* __restrict__ codes_a,  // [B, M], codes > 4 are padding
-    const uint8_t* __restrict__ codes_b,  // [B, N]
-    const int32_t* __restrict__ lens_a,   // [B]
-    const int32_t* __restrict__ lens_b,   // [B]
-    const float* __restrict__ subst,      // [5, 5]
-    float go_ge, float ge, int M, int N,
-    float* __restrict__ scores,           // [B]
-    uint8_t* __restrict__ dec)            // [B, M+N+1, M+1]
+// <= 64 (no block barrier), stopping each CTA at its own mA + mB, and
+// decision bytes kept in shared memory with a fused traceback so they never
+// reach device memory.
+template <class Score>
+__device__ __forceinline__ void gotoh_forward_diagonals(
+    const Score& score, float* rows, int M, int N, int ma, int d_final,
+    float go_ge, float ge, float* __restrict__ score_out, uint8_t* __restrict__ db)
 {
-    extern __shared__ float rows[];  // 7 rows of W floats
-    __shared__ float sub6[36];       // subst with a zero row/column for padding
-    const int b = blockIdx.x;
     const int W = M + 1;
-    const uint8_t* ca = codes_a + (size_t)b * M;
-    const uint8_t* cb = codes_b + (size_t)b * N;
-    uint8_t* db = dec + (size_t)b * (size_t)(M + N + 1) * W;
-    const int ma = lens_a[b];
-    const int d_final = ma + lens_b[b];
-
-    for (int k = threadIdx.x; k < 36; k += blockDim.x) {
-        const int r = k / 6, c = k % 6;
-        sub6[k] = (r < 5 && c < 5) ? subst[r * 5 + c] : 0.0f;
-    }
     // H rows 0..2, E rows 3..4, F rows 5..6.  Diagonal 0: H = [0, NEG, ...]
     // in row 0; the "diagonal -1" H row (row 2) and E/F (rows 3, 5) are NEG.
     for (int i = threadIdx.x; i < W; i += blockDim.x) {
@@ -70,7 +55,7 @@ __global__ void gotoh_forward_codes_kernel(
         rows[5 * W + i] = kNeg;
         db[i] = 0;
     }
-    if (threadIdx.x == 0 && d_final == 0) scores[b] = 0.0f;
+    if (threadIdx.x == 0 && d_final == 0) *score_out = 0.0f;
     __syncthreads();
 
     int r_cur = 1, r_prev = 0, r_prev2 = 2;  // H rows of diagonals d, d-1, d-2
@@ -83,7 +68,10 @@ __global__ void gotoh_forward_codes_kernel(
         const float* fp = rows + (5 + ((d - 1) & 1)) * W;
         float* fn = rows + (5 + (d & 1)) * W;
         uint8_t* drow = db + (size_t)d * W;
-        for (int i = threadIdx.x; i < W; i += blockDim.x) {
+#pragma unroll
+        for (int k = 0; k < Score::kLanes; ++k) {
+            const int i = threadIdx.x + k * blockDim.x;
+            if (i >= W) break;
             const int j = d - i;
             const float e_from_h = hp[i] + go_ge;
             const float e_from_e = ep[i] + ge;
@@ -100,9 +88,7 @@ __global__ void gotoh_forward_codes_kernel(
             float s = kNeg;
             if (i >= 1) {
                 s = 0.0f;
-                if (j >= 1 && j <= N) {
-                    s = sub6[min((int)ca[i - 1], 5) * 6 + min((int)cb[j - 1], 5)];
-                }
+                if (j >= 1 && j <= N) s = score(k, i, j);
             }
             const float hd = ((i >= 1) ? hp2[i - 1] : kNeg) + s;
             float best = hd;
@@ -113,13 +99,142 @@ __global__ void gotoh_forward_codes_kernel(
             hn[i] = best;
             en[i] = ev;
             fn[i] = fv;
-            if (i == ma && d == d_final) scores[b] = best;
+            if (i == ma && d == d_final) *score_out = best;
         }
         __syncthreads();
         r_prev2 = r_prev;
         r_prev = r_cur;
         r_cur = (r_cur + 1) % 3;
     }
+}
+
+// Code pairs: the score is a lookup in the substitution matrix (codes > 4
+// are padding and score 0).  Lanes per thread: ceil((8192 + 1) / 1024).
+struct CodeScore {
+    static constexpr int kLanes = 9;
+    const uint8_t* ca;
+    const uint8_t* cb;
+    const float* sub6;  // [6, 6], zero row and column for padding
+    __device__ __forceinline__ float operator()(int, int i, int j) const {
+        return sub6[min((int)ca[i - 1], 5) * 6 + min((int)cb[j - 1], 5)];
+    }
+};
+
+// Profiles: lane i's row score q_i = pA[i-1] . SUBST (5 floats) is computed
+// once per owned lane into registers; a cell reads pB[j-1] from shared
+// memory and takes s = sum_l q_i[l] * pB[j-1][l] over l = 0..4 in order.
+// Every product and sum is rounded on its own (__fmul_rn / __fadd_rn: no
+// fused multiply-add), the order ops/dp.py::gotoh_forward_profiles_ref
+// uses, so kernel and plain version agree to the bit; on integer counts
+// with an integer matrix every partial sum is an integer below 2^24 and the
+// result equals the JAX package's in any order.  Lanes per thread:
+// ceil((4096 + 1) / 1024).
+struct ProfileScore {
+    static constexpr int kLanes = 5;
+    float q[kLanes][5];
+    const float* pb;  // shared memory, [N, 5]
+    __device__ __forceinline__ float operator()(int k, int, int j) const {
+        const float* r = pb + (j - 1) * 5;
+        float s = __fmul_rn(q[k][0], r[0]);
+#pragma unroll
+        for (int l = 1; l < 5; ++l) s = __fadd_rn(s, __fmul_rn(q[k][l], r[l]));
+        return s;
+    }
+};
+
+// One profile row into p[5], divided by max(row total, 1) when normalize
+// is set (the total summed left to right): ops/dp.py::normalize_profiles.
+__device__ __forceinline__ void load_profile_row(
+    const float* __restrict__ src, bool normalize, float* p)
+{
+#pragma unroll
+    for (int l = 0; l < 5; ++l) p[l] = src[l];
+    if (normalize) {
+        float total = p[0];
+#pragma unroll
+        for (int l = 1; l < 5; ++l) total = __fadd_rn(total, p[l]);
+        const float den = fmaxf(total, 1.0f);
+#pragma unroll
+        for (int l = 0; l < 5; ++l) p[l] = __fdiv_rn(p[l], den);
+    }
+}
+
+// Both forward kernels launch up to 1024 threads (one per lane of the
+// widest diagonal), so each may hold at most 64 registers: the bound makes
+// ptxas fit that instead of refusing the launch at sides >= 1024.
+__global__ void __launch_bounds__(1024) gotoh_forward_codes_kernel(
+    const uint8_t* __restrict__ codes_a,  // [B, M], codes > 4 are padding
+    const uint8_t* __restrict__ codes_b,  // [B, N]
+    const int32_t* __restrict__ lens_a,   // [B]
+    const int32_t* __restrict__ lens_b,   // [B]
+    const float* __restrict__ subst,      // [5, 5]
+    float go_ge, float ge, int M, int N,
+    float* __restrict__ scores,           // [B]
+    uint8_t* __restrict__ dec)            // [B, M+N+1, M+1]
+{
+    extern __shared__ float rows[];  // 7 rows of M + 1 floats
+    __shared__ float sub6[36];
+    const int b = blockIdx.x;
+    for (int k = threadIdx.x; k < 36; k += blockDim.x) {
+        const int r = k / 6, c = k % 6;
+        sub6[k] = (r < 5 && c < 5) ? subst[r * 5 + c] : 0.0f;
+    }
+    // sub6 is read only after the body's first barrier
+    const CodeScore score{codes_a + (size_t)b * M, codes_b + (size_t)b * N, sub6};
+    const int ma = lens_a[b];
+    gotoh_forward_diagonals(score, rows, M, N, ma, ma + lens_b[b], go_ge, ge,
+                            scores + b, dec + (size_t)b * (size_t)(M + N + 1) * (M + 1));
+}
+
+// gotoh_forward_profiles_kernel: the profile input of the same TPU kernel
+// (the JAX package's count-profile DP, dp.align_profiles_batch_async).
+// Shared memory: the 7 state rows plus pB staged once (normalized when asked),
+// 7 x 4 x (M+1) + 20 x N bytes: 192 KB at M = N = 4096, so this kernel's
+// side limit is 4096 (PROFILE_MAX_SIDE in ops/gotoh_cuda.py).
+__global__ void __launch_bounds__(1024) gotoh_forward_profiles_kernel(
+    const float* __restrict__ prof_a,     // [B, M, 5], zero rows past lens_a
+    const float* __restrict__ prof_b,     // [B, N, 5]
+    const int32_t* __restrict__ lens_a,   // [B]
+    const int32_t* __restrict__ lens_b,   // [B]
+    const float* __restrict__ subst,      // [5, 5]
+    float go_ge, float ge, int M, int N, int normalize,
+    float* __restrict__ scores,           // [B]
+    uint8_t* __restrict__ dec)            // [B, M+N+1, M+1]
+{
+    extern __shared__ float rows[];  // 7 rows of M + 1 floats, then pB [N, 5]
+    const int b = blockIdx.x;
+    const int W = M + 1;
+    float* pb = rows + 7 * W;
+    const float* pa_b = prof_a + (size_t)b * M * 5;
+    const float* pb_b = prof_b + (size_t)b * N * 5;
+    for (int r = threadIdx.x; r < N; r += blockDim.x) {
+        float p[5];
+        load_profile_row(pb_b + (size_t)r * 5, normalize != 0, p);
+#pragma unroll
+        for (int l = 0; l < 5; ++l) pb[r * 5 + l] = p[l];
+    }
+    ProfileScore score;
+    score.pb = pb;
+#pragma unroll
+    for (int k = 0; k < ProfileScore::kLanes; ++k) {
+        const int i = threadIdx.x + k * blockDim.x;
+#pragma unroll
+        for (int l = 0; l < 5; ++l) score.q[k][l] = 0.0f;
+        if (i < 1 || i >= W) continue;
+        float p[5];
+        load_profile_row(pa_b + (size_t)(i - 1) * 5, normalize != 0, p);
+#pragma unroll
+        for (int l = 0; l < 5; ++l) {
+            float q = __fmul_rn(p[0], subst[l]);
+#pragma unroll
+            for (int m = 1; m < 5; ++m) q = __fadd_rn(q, __fmul_rn(p[m], subst[m * 5 + l]));
+            score.q[k][l] = q;
+        }
+    }
+    // pb is read only after the body's first barrier
+    const int ma = lens_a[b];
+    gotoh_forward_diagonals(score, rows, M, N, ma, ma + lens_b[b], go_ge, ge,
+                            scores + b, dec + (size_t)b * (size_t)(M + N + 1) * W);
 }
 
 // gotoh_traceback_kernel replaces the XLA traceback
@@ -188,6 +303,25 @@ int gotoh_forward_codes_launch(
     gotoh_forward_codes_kernel<<<B, threads, smem, (cudaStream_t)stream>>>(
         (const uint8_t*)codes_a, (const uint8_t*)codes_b, (const int32_t*)lens_a,
         (const int32_t*)lens_b, (const float*)subst, go_ge, ge, M, N,
+        (float*)scores, (uint8_t*)dec);
+    return (int)cudaGetLastError();
+}
+
+int gotoh_forward_profiles_launch(
+    const void* prof_a, const void* prof_b, const void* lens_a, const void* lens_b,
+    const void* subst, float go_ge, float ge, int B, int M, int N, int normalize,
+    void* scores, void* dec, void* stream)
+{
+    const int W = M + 1;
+    int threads = ((W + 31) / 32) * 32;
+    if (threads > 1024) threads = 1024;
+    const size_t smem = sizeof(float) * (7 * (size_t)W + 5 * (size_t)N);
+    cudaError_t err = cudaFuncSetAttribute(
+        gotoh_forward_profiles_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    gotoh_forward_profiles_kernel<<<B, threads, smem, (cudaStream_t)stream>>>(
+        (const float*)prof_a, (const float*)prof_b, (const int32_t*)lens_a,
+        (const int32_t*)lens_b, (const float*)subst, go_ge, ge, M, N, normalize,
         (float*)scores, (uint8_t*)dec);
     return (int)cudaGetLastError();
 }

@@ -14,11 +14,14 @@ from typing import List, Optional
 
 import numpy as np
 
+from mauvealigner_tpu_torch.analysis.backbone import HmmParams
+from mauvealigner_tpu_torch.analysis.tree import TreeNode
 from mauvealigner_tpu_torch.core.interval import Interval, IntervalList
 from mauvealigner_tpu_torch.core.match import MatchList
 from mauvealigner_tpu_torch.genome.sequence import Contig, Feature, Genome
 from mauvealigner_tpu_torch.models.aligner import AlignerOptions
 from mauvealigner_tpu_torch.models.lcb import LCB
+from mauvealigner_tpu_torch.models.progressive import ProgressiveOptions
 
 
 def genome(g) -> Genome:
@@ -83,3 +86,34 @@ def aligner_options(o, device) -> AlignerOptions:
     if kw.get("closure_genomes") is not None:
         kw["closure_genomes"] = genomes(kw["closure_genomes"])
     return AlignerOptions(device=device, **kw)
+
+
+def progressive_options(o, device) -> ProgressiveOptions:
+    """The JAX package's ProgressiveOptions on `device`; a mesh has no
+    counterpart and raises, subst is copied as float32."""
+    if getattr(o, "mesh", None) is not None:
+        raise NotImplementedError("mesh-sharded alignment is slice 5 of the port")
+    kw = {}
+    for f in dataclasses.fields(ProgressiveOptions):
+        if f.name == "device" or not hasattr(o, f.name):
+            continue
+        kw[f.name] = getattr(o, f.name)
+    if kw.get("subst") is not None:
+        kw["subst"] = np.array(kw["subst"], np.float32)
+    return ProgressiveOptions(device=device, **kw)
+
+
+def tree(node) -> TreeNode:
+    """A guide tree (the JAX package's TreeNode), copied node by node with
+    parent links."""
+    out = TreeNode(name=node.name, length=node.length, children=[tree(c) for c in node.children])
+    for c in out.children:
+        c.parent = out
+    return out
+
+
+def hmm_params(p) -> HmmParams:
+    return HmmParams(
+        float(p.go_homologous), float(p.go_unrelated),
+        np.array(p.emit_h, np.float64), np.array(p.emit_u, np.float64),
+    )

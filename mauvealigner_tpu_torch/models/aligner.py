@@ -1,5 +1,5 @@
 """MauveAligner: the original Mauve algorithm, in PyTorch (port of
-mauvealigner_tpu/models/aligner.py; pairwise gapped closure).
+mauvealigner_tpu/models/aligner.py).
 
 Pipeline parity with Aligner::align + doAlignment
 (src/mauveAligner.cpp:70,668-744):
@@ -427,6 +427,7 @@ class MauveAligner:
         genomes: Sequence[Genome],
         ml: MatchList,
         lcbs: List[LCB],
+        seq_profiles: Optional[List[np.ndarray]] = None,
     ) -> IntervalList:
         import time as _time
 
@@ -434,6 +435,10 @@ class MauveAligner:
 
         o = self.options
         n = len(genomes)
+        if seq_profiles is not None and n == 2 and o.gapped:
+            return self._build_intervals_profiles(
+                genomes, ml, lcbs, seq_profiles
+            )
         _t = _time.perf_counter()
         # closure scoring source: the inputs, or the member-aware stand-ins
         closure_src = o.closure_genomes or genomes
@@ -475,6 +480,87 @@ class MauveAligner:
         _timing.GLOBAL.add("cl_assemble_s", _time.perf_counter() - _t)
         return IntervalList(genomes=list(genomes), intervals=intervals)
 
+    @staticmethod
+    def _extract_profile(
+        prof: np.ndarray, left: int, right: int, strand: int
+    ) -> np.ndarray:
+        """Signed-region slice of a [L, 5] count profile: reverse-strand
+        regions reverse the rows and complement the base lanes (A<->T,
+        C<->G; the ambiguity lane stays)."""
+        if right < left:
+            return np.zeros((0, 5), prof.dtype)
+        chunk = prof[left - 1 : right]
+        if strand >= 0:
+            return chunk
+        return chunk[::-1, [3, 2, 1, 0, 4]]
+
+    def _build_intervals_profiles(
+        self,
+        genomes: Sequence[Genome],
+        ml: MatchList,
+        lcbs: List[LCB],
+        seq_profiles: List[np.ndarray],
+    ) -> IntervalList:
+        """Pairwise build_intervals whose gapped closure aligns TRUE column
+        count profiles with mean-of-pairs scoring (the reference's
+        PSP-style profile alignment, src/progressiveMauve.cpp:575-710) —
+        majority-consensus codes still drive anchoring, but gap placement
+        sees the full clade composition."""
+        import time as _time
+
+        from mauvealigner_tpu_torch.utils import timing as _timing
+
+        o = self.options
+        n = 2
+        _t = _time.perf_counter()
+        prof_pairs = []   # (profA, lenA, profB, lenB)
+        pair_ref: List[Tuple[int, int]] = []
+        gap_table: dict = {}
+        per_lcb_matches: List[MatchList] = []
+        for li, lcb in enumerate(lcbs):
+            sub = self.make_collinear_nonoverlapping(ml.select(lcb.match_indices))
+            per_lcb_matches.append(sub)
+            if len(sub) < 2:
+                continue
+            left, right, strand = self._gap_region_table(sub)
+            for a in range(len(sub) - 1):
+                regs = [
+                    self._extract_profile(
+                        seq_profiles[g], int(left[a, g]), int(right[a, g]),
+                        int(strand[a, g]),
+                    )
+                    for g in range(n)
+                ]
+                la, lb = len(regs[0]), len(regs[1])
+                if la == 0 and lb == 0:
+                    gap_table[(li, a)] = np.zeros((n, 0), bool)
+                elif la == 0 or lb == 0 or max(la, lb) > o.max_gapped_len:
+                    # degenerate or over the cap: unaligned block emission
+                    aln = np.zeros((n, la + lb), bool)
+                    aln[0, :la] = True
+                    aln[1, la:] = True
+                    gap_table[(li, a)] = aln
+                else:
+                    prof_pairs.append((regs[0], la, regs[1], lb))
+                    pair_ref.append((li, a))
+        _timing.GLOBAL.add("cl_regions_s", _time.perf_counter() - _t)
+        if prof_pairs:
+            ops_list = closure._batched_profile_pair_align(
+                prof_pairs,
+                o.subst if o.subst is not None else dp.HOXD70,
+                o.gap_open,
+                o.gap_extend,
+                self.device,
+                normalize=True,
+            )
+            for (li, a), ops in zip(pair_ref, ops_list):
+                ra, rb = dp.ops_to_gap_rows(ops)
+                gap_table[(li, a)] = np.stack([ra, rb])
+        _t = _time.perf_counter()
+        intervals = assemble_lcb_intervals(per_lcb_matches, gap_table, n)
+        _timing.GLOBAL.add("cl_assemble_s", _time.perf_counter() - _t)
+        return IntervalList(genomes=list(genomes), intervals=intervals)
+
     # -- full pipeline ------------------------------------------------------
     def align(
         self,
@@ -486,13 +572,10 @@ class MauveAligner:
         result before LCB determination (the progressive aligner's
         translated extant anchors, models/tree_progressive.py).
 
-        seq_profiles: the profile-aware closure of the progressive ladder;
-        slice 2 of the port, so it raises here."""
-        if seq_profiles is not None:
-            raise NotImplementedError(
-                "seq_profiles needs count-profile DP: ROADMAP Queue A, "
-                "'count-profile input and normalize in gotoh_forward (B1)'"
-            )
+        seq_profiles: per-input uint8 [len, 5] column count profiles; when
+        given (pairwise only), the gapped closure aligns TRUE column
+        profiles (mean-of-pairs scoring) instead of the sequences' codes —
+        the progressive ladder's profile-aware node merge."""
         import time as _time
 
         from mauvealigner_tpu_torch.utils import timing
@@ -529,7 +612,7 @@ class MauveAligner:
         timer.add("aln_recursion_s", _time.perf_counter() - _t)
         _t = _time.perf_counter()
         with timer.phase("gapped_closure"):
-            ivs = self.build_intervals(genomes, ml, lcbs)
+            ivs = self.build_intervals(genomes, ml, lcbs, seq_profiles)
         timer.add("aln_closure_s", _time.perf_counter() - _t)
         if self.options.debug:
             from mauvealigner_tpu_torch.core.validate import validate_interval_list

@@ -16,9 +16,10 @@ left/consume-B), end of alignment first.
 
 Gap model: a gap of length k costs gap_open + k*gap_extend (both negative).
 Tie-breaking is deterministic: diagonal > up > left; gap-open wins ties over
-gap-extend.  The substitution score of a cell is looked up from the codes,
-so no [B, M, N] score matrix is built, and everything accumulates in f32:
-HOXD-class integer scores are exact.
+gap-extend.  The substitution score of a cell is computed per cell (looked up
+from the codes, or (pA[i-1] . SUBST) . pB[j-1] for count profiles), so no
+[B, M, N] score matrix is built, and everything accumulates in f32:
+HOXD-class integer scores over uint8 counts are exact.
 """
 
 from __future__ import annotations
@@ -110,36 +111,12 @@ def _subst6(subst: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def gotoh_forward_codes_ref(
-    codes_a: torch.Tensor,  # uint8 [B, M], padding >= 5
-    codes_b: torch.Tensor,  # uint8 [B, N]
-    lens_a: torch.Tensor,   # int32 [B]
-    lens_b: torch.Tensor,   # int32 [B]
-    subst: torch.Tensor,    # f32 [5, 5]
-    gap_open: float,
-    gap_extend: float,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain-torch Gotoh forward pass over anti-diagonals: what the JAX
-    package's _gotoh_core computes for one-hot code inputs.
-
-    Returns (scores [B] f32 = H[mA, mB], 0 when mA + mB == 0;
-    dec [B, M+N+1, M+1] uint8).  Cells outside the live band use a zero
-    substitution score; the traceback never reads them."""
-    B, M = codes_a.shape
-    N = codes_b.shape[1]
-    dev = codes_a.device
+def _gotoh_forward_ref(B, M, N, lens_a, lens_b, gap_open, gap_extend, dev, live_scores):
+    """The recurrence both plain versions share.  live_scores(j, live) ->
+    [B, M+1] f32 substitution scores of the cells (lane, j) on one
+    anti-diagonal, read only where `live` (1 <= j <= N); lane 0 scores NEG
+    and off-band cells 0, as the CUDA kernels do."""
     go_ge, ge = gap_scalars(gap_open, gap_extend)
-    sub = _subst6(subst).reshape(-1)
-    # lane i reads code a[i-1]; lane 0 has none
-    a_idx = torch.cat(
-        [torch.full((B, 1), 5, dtype=torch.int64, device=dev), codes_a.long().clamp(max=5)],
-        dim=1,
-    ) * 6
-    # column N of b_pad is the zero-score padding code read off the band
-    b_pad = torch.cat(
-        [codes_b.long().clamp(max=5), torch.full((B, 1), 5, dtype=torch.int64, device=dev)],
-        dim=1,
-    )
     lane = torch.arange(M + 1, device=dev)
     neg = torch.tensor(NEG, dtype=torch.float32, device=dev)
     neg_col = torch.full((B, 1), NEG, dtype=torch.float32, device=dev)
@@ -164,8 +141,8 @@ def gotoh_forward_codes_ref(
         f_open = f_from_h >= f_from_f
         F = torch.where(lane >= 1, torch.maximum(f_from_h, f_from_f), neg)
 
-        bj = b_pad[:, torch.where((j >= 1) & (j <= N), j - 1, N)]
-        s = torch.where(lane == 0, neg, sub[a_idx + bj])
+        live = (j >= 1) & (j <= N)
+        s = torch.where(lane == 0, neg, torch.where(live, live_scores(j, live), 0.0))
         Hd = torch.cat([neg_col, H_prev2[:, :-1]], dim=1) + s
 
         # priority diag > up(F) > left(E); strict > keeps the earlier choice
@@ -179,6 +156,105 @@ def gotoh_forward_codes_ref(
         score = torch.where(d_final == d, best.gather(1, la)[:, 0], score)
         H_prev2, H_prev, E_prev, F_prev = H_prev, best, E, F
     return score, dec
+
+
+def gotoh_forward_codes_ref(
+    codes_a: torch.Tensor,  # uint8 [B, M], padding >= 5
+    codes_b: torch.Tensor,  # uint8 [B, N]
+    lens_a: torch.Tensor,   # int32 [B]
+    lens_b: torch.Tensor,   # int32 [B]
+    subst: torch.Tensor,    # f32 [5, 5]
+    gap_open: float,
+    gap_extend: float,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain-torch Gotoh forward pass over anti-diagonals: what the JAX
+    package's _gotoh_core computes for one-hot code inputs.
+
+    Returns (scores [B] f32 = H[mA, mB], 0 when mA + mB == 0;
+    dec [B, M+N+1, M+1] uint8).  Cells outside the live band use a zero
+    substitution score; the traceback never reads them."""
+    B, M = codes_a.shape
+    N = codes_b.shape[1]
+    dev = codes_a.device
+    sub = _subst6(subst).reshape(-1)
+    # lane i reads code a[i-1]; lane 0 has none
+    a_idx = torch.cat(
+        [torch.full((B, 1), 5, dtype=torch.int64, device=dev), codes_a.long().clamp(max=5)],
+        dim=1,
+    ) * 6
+    # column N of b_pad is the padding code read off the band
+    b_pad = torch.cat(
+        [codes_b.long().clamp(max=5), torch.full((B, 1), 5, dtype=torch.int64, device=dev)],
+        dim=1,
+    )
+
+    def live_scores(j, live):
+        return sub[a_idx + b_pad[:, torch.where(live, j - 1, N)]]
+
+    return _gotoh_forward_ref(B, M, N, lens_a, lens_b, gap_open, gap_extend, dev, live_scores)
+
+
+def normalize_profiles(p: torch.Tensor) -> torch.Tensor:
+    """p / max(sum of the row, 1) per [.., 5] row, the row sum taken left to
+    right: the JAX package's normalize (mean pairwise substitution scoring);
+    the CUDA kernel computes the same expression in the same order."""
+    total = p[..., 0]
+    for k in range(1, 5):
+        total = total + p[..., k]
+    return p / torch.clamp(total, min=1.0)[..., None]
+
+
+def profile_row_scores(p: torch.Tensor, subst: torch.Tensor) -> torch.Tensor:
+    """q = p . SUBST per [.., 5] row, summed over the profile lanes in order
+    0..4 with a rounding after every product and sum (no fused
+    multiply-add), as the CUDA kernel computes it."""
+    sub = subst.to(torch.float32)
+    q = p[..., 0:1] * sub[0]
+    for m in range(1, 5):
+        q = q + p[..., m : m + 1] * sub[m]
+    return q
+
+
+def gotoh_forward_profiles_ref(
+    prof_a: torch.Tensor,  # f32 [B, M, 5], rows beyond lens_a are zero
+    prof_b: torch.Tensor,  # f32 [B, N, 5]
+    lens_a: torch.Tensor,  # int32 [B]
+    lens_b: torch.Tensor,  # int32 [B]
+    subst: torch.Tensor,   # f32 [5, 5]
+    gap_open: float,
+    gap_extend: float,
+    normalize: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain-torch Gotoh forward pass over profiles: what the JAX package's
+    gotoh_forward_scored computes.  The cell score is
+    s(i, j) = q_i . pB[j-1] with q_i = pA[i-1] . SUBST (profile_row_scores),
+    summed over lanes 0..4 in order with no fused multiply-add; normalize
+    first divides every profile row by its count total (normalize_profiles).
+    Outputs as gotoh_forward_codes_ref."""
+    B, M, _ = prof_a.shape
+    N = prof_b.shape[1]
+    dev = prof_a.device
+    pa = prof_a.to(torch.float32)
+    pb = prof_b.to(torch.float32)
+    if normalize:
+        pa = normalize_profiles(pa)
+        pb = normalize_profiles(pb)
+    # lane i owns q_i; lane 0 has none (its score is NEG)
+    q = torch.cat(
+        [torch.zeros((B, 1, 5), dtype=torch.float32, device=dev), profile_row_scores(pa, subst)],
+        dim=1,
+    )
+    # row N of pb_pad is a zero row read off the band
+    pb_pad = torch.cat([pb, torch.zeros((B, 1, 5), dtype=torch.float32, device=dev)], dim=1)
+
+    def live_scores(j, live):
+        pbj = pb_pad[:, torch.where(live, j - 1, N)]  # [B, M+1, 5]
+        s = q[..., 0] * pbj[..., 0]
+        for k in range(1, 5):
+            s = s + q[..., k] * pbj[..., k]
+        return s
+
+    return _gotoh_forward_ref(B, M, N, lens_a, lens_b, gap_open, gap_extend, dev, live_scores)
 
 
 def gotoh_traceback_ref(
@@ -270,6 +346,77 @@ def align_code_pairs_batch(
     """Blocking align_code_pairs_batch_async."""
     return align_code_pairs_batch_async(
         codes_a, codes_b, lens_a, lens_b, subst, gap_open, gap_extend, device
+    )()
+
+
+def align_profiles_batch_async(
+    profiles_a: np.ndarray,  # [B, M, 5] uint8 counts (or float32), zero rows past lens_a
+    profiles_b: np.ndarray,  # [B, N, 5]
+    lens_a: np.ndarray,
+    lens_b: np.ndarray,
+    subst: np.ndarray = HOXD70,
+    gap_open: float = DEFAULT_GAP_OPEN,
+    gap_extend: float = DEFAULT_GAP_EXTEND,
+    normalize: bool = False,
+    device="cuda",
+):
+    """Launch a batched profile-pair alignment on `device`; returns a
+    zero-arg fetch() -> (list of op arrays in start-to-end order, scores
+    [B]).  uint8 count profiles are copied as bytes and widened to f32 on
+    the device.  normalize=True scores the mean pairwise substitution (each
+    profile row divided by its count total on the device) — the
+    profile-aware mode whose score scale matches plain code alignment."""
+    from mauvealigner_tpu_torch.ops import gotoh_cuda  # imports this module
+    from mauvealigner_tpu_torch.utils import timing
+
+    B, M, _ = profiles_a.shape
+    N = profiles_b.shape[1]
+    la_h = np.asarray(lens_a, np.int32)
+    lb_h = np.asarray(lens_b, np.int32)
+    if B and (la_h.min() < 0 or lb_h.min() < 0 or la_h.max() > M or lb_h.max() > N):
+        raise ValueError(f"lengths must lie in [0, {M}] x [0, {N}]")
+    timing.GLOBAL.add("dp_cells", float(B) * M * N)
+    timing.GLOBAL.add("dp_calls", 1.0)
+
+    def ship(p):
+        if p.dtype != np.uint8:
+            p = np.asarray(p, np.float32)
+        return torch.from_numpy(np.ascontiguousarray(p)).to(device).to(torch.float32)
+
+    pa, pb = ship(profiles_a), ship(profiles_b)
+    la = torch.from_numpy(la_h).to(device)
+    lb = torch.from_numpy(lb_h).to(device)
+    sub = torch.from_numpy(np.asarray(subst, np.float32).copy()).to(device)
+    scores, dec = gotoh_cuda.gotoh_forward_profiles(
+        pa, pb, la, lb, sub, gap_open, gap_extend, normalize
+    )
+    ops, counts = gotoh_cuda.gotoh_traceback(dec, la, lb)
+    del dec
+
+    def fetch():
+        ops_h = ops.cpu().numpy()
+        cnt = counts.cpu().numpy()
+        out = [ops_h[b, : cnt[b]][::-1].copy() for b in range(B)]
+        return out, scores.cpu().numpy()
+
+    return fetch
+
+
+def align_profiles_batch(
+    profiles_a: np.ndarray,
+    profiles_b: np.ndarray,
+    lens_a: np.ndarray,
+    lens_b: np.ndarray,
+    subst: np.ndarray = HOXD70,
+    gap_open: float = DEFAULT_GAP_OPEN,
+    gap_extend: float = DEFAULT_GAP_EXTEND,
+    normalize: bool = False,
+    device="cuda",
+) -> Tuple[List[np.ndarray], np.ndarray]:
+    """Blocking align_profiles_batch_async."""
+    return align_profiles_batch_async(
+        profiles_a, profiles_b, lens_a, lens_b, subst, gap_open, gap_extend,
+        normalize, device,
     )()
 
 

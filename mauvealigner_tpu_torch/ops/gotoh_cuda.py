@@ -1,8 +1,10 @@
 """K3 kernels: the hand-written CUDA Gotoh forward pass and traceback.
 
-gotoh_forward_codes replaces the TPU kernel
-mauvealigner_tpu/ops/dp_pallas.py::_kernel / gotoh_forward_pallas;
-gotoh_traceback replaces the XLA mauvealigner_tpu/ops/dp.py::gotoh_traceback.
+gotoh_forward_codes (code pairs) and gotoh_forward_profiles (count
+profiles, optionally normalized) replace the two input modes of the TPU
+kernel mauvealigner_tpu/ops/dp_pallas.py::_kernel / gotoh_forward_pallas;
+gotoh_traceback replaces the XLA mauvealigner_tpu/ops/dp.py::gotoh_traceback
+and serves both.
 The sources are csrc/gotoh.cu (design and bounds noted there), built by
 ops/_build.py on first use.
 
@@ -23,8 +25,11 @@ from mauvealigner_tpu_torch.ops import dp
 # the largest DP side whose 7 state rows (7 x 4 x (side+1) bytes) fit a
 # Hopper block's 227 KB of shared memory; larger sides raise
 MAX_SIDE = 8192
+# the profile kernel also stages pB (20 x side bytes) in shared memory:
+# 7 x 4 x 4097 + 20 x 4096 bytes = 192 KB fits, the next bucket does not
+PROFILE_MAX_SIDE = 4096
 
-LAUNCHES = {"gotoh_forward_codes": 0, "gotoh_traceback": 0}
+LAUNCHES = {"gotoh_forward_codes": 0, "gotoh_forward_profiles": 0, "gotoh_traceback": 0}
 
 
 def reset_launches() -> None:
@@ -101,12 +106,62 @@ def gotoh_forward_codes(
     return scores, dec
 
 
+def gotoh_forward_profiles(
+    prof_a: torch.Tensor,  # f32 [B, M, 5], zero rows past lens_a
+    prof_b: torch.Tensor,  # f32 [B, N, 5]
+    lens_a: torch.Tensor,  # int32 [B], each <= M
+    lens_b: torch.Tensor,  # int32 [B], each <= N
+    subst: torch.Tensor,   # f32 [5, 5]
+    gap_open: float,
+    gap_extend: float,
+    normalize: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Batched Gotoh forward pass over profiles: (scores [B] f32,
+    dec [B, M+N+1, M+1] uint8), as dp.gotoh_forward_profiles_ref computes
+    them."""
+    if prof_a.device.type == "cpu":
+        return dp.gotoh_forward_profiles_ref(
+            prof_a, prof_b, lens_a, lens_b, subst, gap_open, gap_extend, normalize
+        )
+    if prof_a.device.type != "cuda":
+        raise ValueError(f"no Gotoh kernel for device {prof_a.device}")
+    B, M, _ = prof_a.shape
+    N = prof_b.shape[1]
+    dev = prof_a.device
+    _check(prof_a, "prof_a", torch.float32, (B, M, 5), dev)
+    _check(prof_b, "prof_b", torch.float32, (B, N, 5), dev)
+    _check(lens_a, "lens_a", torch.int32, (B,), dev)
+    _check(lens_b, "lens_b", torch.int32, (B,), dev)
+    _check(subst, "subst", torch.float32, (5, 5), dev)
+    if max(M, N) > PROFILE_MAX_SIDE:
+        raise ValueError(
+            f"profile DP side {max(M, N)} exceeds the CUDA kernel's shared-memory "
+            f"limit of {PROFILE_MAX_SIDE} (lower --max-gapped-aligner-length)"
+        )
+    scores = torch.empty(B, dtype=torch.float32, device=dev)
+    dec = torch.empty((B, M + N + 1, M + 1), dtype=torch.uint8, device=dev)
+    if B == 0:
+        return scores, dec
+    from mauvealigner_tpu_torch.ops import _build
+
+    lib = _build.library()
+    go_ge, ge = dp.gap_scalars(gap_open, gap_extend)
+    err = lib.gotoh_forward_profiles_launch(
+        _ptr(prof_a), _ptr(prof_b), _ptr(lens_a), _ptr(lens_b), _ptr(subst),
+        go_ge, ge, B, M, N, int(bool(normalize)), _ptr(scores), _ptr(dec),
+        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
+    )
+    _raise_on_error(lib, err, "gotoh_forward_profiles")
+    LAUNCHES["gotoh_forward_profiles"] += 1
+    return scores, dec
+
+
 def gotoh_traceback(
     dec: torch.Tensor,     # uint8 [B, M+N+1, M+1]
     lens_a: torch.Tensor,  # int32 [B]
     lens_b: torch.Tensor,  # int32 [B]
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Traceback of gotoh_forward_codes' decisions: (ops [B, M+N] uint8 end
+    """Traceback of either forward kernel's decisions: (ops [B, M+N] uint8 end
     first, counts [B] int32), as dp.gotoh_traceback_ref computes them."""
     if dec.device.type == "cpu":
         return dp.gotoh_traceback_ref(dec, lens_a, lens_b)

@@ -227,6 +227,18 @@ def _concat_device_smls(smls_dev):
     return keys, seq_ids, pos
 
 
+def _sketch_compact(keys, seq_ids, positions, mod: int):
+    """Keep the entries whose strand-free mer hashes to 0 mod `mod`, in
+    order (a compaction by mask: one elementwise pass, no sort), so a
+    sketched search sorts ~1/mod of the entries.  Port of the JAX package's
+    matchops._sketch_compact; the JAX version scatters into a fixed-size
+    buffer sized 1.25x the expected count, which only a hash skew beyond
+    that margin would overflow."""
+    h = _mix64((keys >> 1) + 11, _MIX_C2)
+    keep = (keys != INVALID_KEY) & (h % mod == 0)
+    return keys[keep], seq_ids[keep], positions[keep]
+
+
 def find_multi_mums_device(
     genomes: Sequence[Genome],
     smls_dev,
@@ -236,6 +248,7 @@ def find_multi_mums_device(
     extend: bool = True,
     seed_length: int = 0,
     initial_cap: Optional[int] = None,
+    sketch_mod: int = 1,
 ) -> MatchList:
     """Unique multi-MUM search on the device of the given mer lists.
 
@@ -246,10 +259,18 @@ def find_multi_mums_device(
     the search then re-runs with the cap raised to the next power of two
     covering the actual count (never truncates).  initial_cap overrides the
     heuristic (tests exercise the retry with a tiny cap).
+
+    sketch_mod > 1 subsamples the mer space by hash (1/mod of the windows
+    enter the sort) — a MinHash-style sketch for distance estimation and
+    coverage gating.  Base-level extension still grows each sampled seed to
+    its full maximal match, so long matches keep their true lengths; only
+    matches spanning fewer than ~mod seed windows can be missed entirely.
     """
     n_seqs = len(genomes)
     mask = np.ones(n_seqs, np.int32) if seq_mask is None else np.asarray(seq_mask, np.int32)
     keys, seq_ids, pos = _concat_device_smls(smls_dev)
+    if sketch_mod > 1:
+        keys, seq_ids, pos = _sketch_compact(keys, seq_ids, pos, sketch_mod)
     N = int(keys.shape[0])
     timing.GLOBAL.add("k2_sort_entries", float(N))
     if N == 0:

@@ -1,13 +1,17 @@
-"""CLI of the port: the mauveAligner subcommand.
+"""CLI of the port: the mauveAligner and progressiveMauve subcommands.
 
 Usage:  python -m mauvealigner_tpu_torch.tools mauveAligner a.fa b.fa \\
             --output-alignment=o.xmfa [--device=cuda]
+        python -m mauvealigner_tpu_torch.tools progressiveMauve a.fa b.fa c.fa \\
+            --output=o.xmfa [--device=cuda]
         python -m mauvealigner_tpu_torch.tools --list
 
-Port of the alignment path of mauvealigner_tpu/tools/cli.py's mauveAligner
-(src/mauveAligner.cpp): anchoring, LCBs, LCB extension, recursive anchoring,
-gapped closure, the match list and the XMFA output.  The other entry points
-and outputs of that subcommand are listed in ROADMAP.md.
+Port of mauvealigner_tpu/tools/cli.py's mauveAligner alignment path
+(src/mauveAligner.cpp: anchoring, LCBs, LCB extension, recursive anchoring,
+gapped closure, the match list and the XMFA output) and its progressiveMauve
+subcommand (src/progressiveMauve.cpp: XMFA, .backbone, .bbcols and
+.guide_tree outputs, --mums, --match-input).  What is not ported yet is
+listed in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -109,6 +113,198 @@ def mauve_aligner_cli(argv: List[str]) -> int:
         # always XMFA (WriteStandardAlignment, src/mauveAligner.cpp:746-760)
         res.interval_list.seq_filenames = list(a.seqs)
         res.interval_list.write_xmfa(a.output_alignment)
+    if a.profile:
+        from mauvealigner_tpu_torch.utils import timing
+
+        sys.stderr.write(timing.GLOBAL.report())
+    return 0
+
+
+@tool("progressiveMauve")
+def progressive_mauve_cli(argv: List[str]) -> int:
+    p = argparse.ArgumentParser(
+        prog="progressiveMauve",
+        description="Progressive multiple genome alignment with homology HMM "
+        "backbone (reference: src/progressiveMauve.cpp)",
+    )
+    p.add_argument("seqs", nargs="+")
+    p.add_argument("--output", required=True, help="XMFA output")
+    p.add_argument("--seed-weight", type=int, default=0)
+    p.add_argument("--solid-seeds", action="store_true")
+    p.add_argument("--coding-seeds", action="store_true")
+    p.add_argument("--seed-family", action="store_true")
+    p.add_argument("--collinear", action="store_true")
+    p.add_argument("--mums", action="store_true")
+    p.add_argument("--skip-gapped-alignment", action="store_true")
+    p.add_argument("--skip-refinement", action="store_true")
+    p.add_argument("--refine-mode", choices=("split", "rebuild"),
+                   default="split",
+                   help="window refinement: one root-edge profile DP per window (split) or full per-window rebuild along the merge plan (rebuild)")
+    p.add_argument("--profile-closure", action="store_true",
+                   help="node-merge gap placement scores TRUE clade count "
+                   "profiles (mean-of-pairs) instead of consensus codes")
+    p.add_argument("--lca-member-scoring", action="store_true",
+                   help="node-merge closure scores the closest cross-clade "
+                   "extant pair's codes (consensus-backed)")
+    p.add_argument("--no-tree-prune", action="store_true",
+                   help="keep short private (occupancy-1) column runs in "
+                   "internal node profiles (default: pruned; the "
+                   "divergence-tail accuracy fix)")
+    p.add_argument("--tree-prune-max-run", type=int, default=20,
+                   help="longest occupancy-1 column run pruned from internal "
+                   "node profiles (longer runs ride along as potential "
+                   "clade-specific islands)")
+    p.add_argument("--no-backbone", "--disable-backbone", dest="no_backbone",
+                   action="store_true")
+    p.add_argument("--backbone-output", default="")
+    p.add_argument("--bbcols-output", default="")
+    p.add_argument("--island-gap-size", type=int, default=20)
+    p.add_argument("--hmm-identity", type=float, default=0.7)
+    p.add_argument("--hmm-p-go-homologous", type=float, default=1e-5)
+    p.add_argument("--hmm-p-go-unrelated", type=float, default=1e-9)
+    p.add_argument("--input-guide-tree", default="")
+    p.add_argument("--output-guide-tree", default="")
+    p.add_argument("--apply-backbone", default="",
+                   help="not ported yet (needs the XMFA reader of the tools "
+                   "slice); raises")
+    p.add_argument("--max-gapped-aligner-length", type=int, default=4096)
+    p.add_argument("--scoring-scheme", default="sp",
+                   choices=["sp", "ancestral", "sp_ancestral", "length"],
+                   help="anchor scoring scheme (src/progressiveMauve.cpp:611-625)")
+    p.add_argument("--no-weight-scaling", action="store_true",
+                   help="disable pairwise-distance LCB weight scaling")
+    p.add_argument("--conservation-distance-scale", type=float, default=0.5)
+    p.add_argument("--max-breakpoint-distance-scale", "--bp-dist-scale",
+                   dest="bp_dist_scale", type=float, default=0.5)
+    p.add_argument("--weight", "--breakpoint-penalty", dest="breakpoint_penalty",
+                   type=float, default=None,
+                   help="explicit minimum LCB weight (sp-score units)")
+    p.add_argument("--min-scaled-penalty", type=float, default=None,
+                   help="floor for the scaled breakpoint penalty")
+    p.add_argument("--bp-dist-estimate-min-score", type=float, default=None,
+                   help="accepted for reference compatibility; pairwise distances "
+                   "here come from match coverage, not a scored estimate")
+    p.add_argument("--gap-open", type=float, default=None)
+    p.add_argument("--gap-extend", type=float, default=None)
+    p.add_argument("--substitution-matrix", default="",
+                   help="NCBI-format substitution matrix file")
+    p.add_argument("--muscle-args", default="",
+                   help="accepted for reference compatibility; no MUSCLE "
+                   "subprocess exists (gapped alignment is on-device DP)")
+    p.add_argument("--penalize-repeats", action="store_true",
+                   help="accepted for reference compatibility; anchors here are "
+                   "unique MUMs so repeat penalization does not apply")
+    p.add_argument("--repeat-penalty", choices=["negative", "zero"],
+                   default="negative",
+                   help="accepted for reference compatibility (anchors here "
+                   "are unique MUMs, src/progressiveMauve.cpp:295)")
+    p.add_argument("--no-recursion", action="store_true")
+    p.add_argument("--mesh-devices", type=int, default=0,
+                   help="multi-device runs are not ported yet; above 1 raises")
+    p.add_argument("--tree-progressive", choices=["auto", "0", "1"],
+                   default="auto",
+                   help="per-node consensus-profile anchoring up the guide "
+                   "tree (the reference's progressive anchoring semantics); "
+                   "auto enables it when n-way anchor coverage is poor")
+    p.add_argument("--no-boundary-extension", action="store_true",
+                   help="disable gapped extension of LCB boundaries into "
+                   "unanchored flanks")
+    p.add_argument("--max-extension-flank", type=int, default=1024,
+                   help="per-edge cap on gapped boundary extension")
+    p.add_argument("--match-input", default="",
+                   help="read matches from a file, skip the anchor search")
+    p.add_argument("--device", default="cuda",
+                   help="torch device: cuda runs the CUDA kernels, cpu the "
+                   "plain-torch versions (no fallback between them)")
+    p.add_argument("--version", action="version",
+                   version="%(prog)s (mauvealigner_tpu_torch)")
+    p.add_argument("--disable-cache", action="store_true",
+                   help="accepted; the port has no SML disk cache, so this "
+                   "is always in effect")
+    p.add_argument("--mem-clean", action="store_true", help="accepted; no-op")
+    p.add_argument("--debug", action="store_true",
+                   help="perform internal consistency checks (very slow)")
+    p.add_argument("--profile", action="store_true",
+                   help="print per-phase wall-clock and GCUPS to stderr")
+    a = p.parse_args(argv)
+
+    from mauvealigner_tpu_torch.core import mln
+    from mauvealigner_tpu_torch.models.progressive import ProgressiveMauve, ProgressiveOptions
+
+    if a.apply_backbone:
+        raise NotImplementedError(
+            "--apply-backbone needs the XMFA reader, which comes with the tools "
+            "(ROADMAP slice 4)"
+        )
+    if a.mesh_devices > 1:
+        raise NotImplementedError("--mesh-devices: multi-device runs are slice 5 of the port")
+    genomes = load_genomes(a.seqs)
+    opts = ProgressiveOptions(
+        tree_progressive={"auto": None, "0": False, "1": True}[a.tree_progressive],
+        seed_weight=a.seed_weight,
+        solid_seeds=a.solid_seeds,
+        coding_seeds=a.coding_seeds or not a.solid_seeds,
+        seed_family=a.seed_family,
+        collinear=a.collinear,
+        scoring_scheme=a.scoring_scheme,
+        lcb_weight_scaling=not a.no_weight_scaling,
+        conservation_scale=a.conservation_distance_scale,
+        breakpoint_scale=a.bp_dist_scale,
+        breakpoint_penalty=a.breakpoint_penalty,
+        min_scaled_penalty=a.min_scaled_penalty,
+        recursive=not a.no_recursion,
+        gapped=not a.skip_gapped_alignment,
+        max_gapped_len=a.max_gapped_aligner_length,
+        refine=not a.skip_refinement,
+        refine_mode=a.refine_mode,
+        boundary_extension=not a.no_boundary_extension,
+        max_extension_flank=a.max_extension_flank,
+        skip_backbone=a.no_backbone,
+        island_gap_size=a.island_gap_size,
+        hmm_identity=a.hmm_identity,
+        hmm_p_go_homologous=a.hmm_p_go_homologous,
+        hmm_p_go_unrelated=a.hmm_p_go_unrelated,
+        input_guide_tree=a.input_guide_tree or None,
+        output_guide_tree=a.output_guide_tree or (a.output + ".guide_tree"),
+        profile_closure=a.profile_closure,
+        lca_member_scoring=a.lca_member_scoring,
+        tree_prune_private=not a.no_tree_prune,
+        tree_prune_max_run=a.tree_prune_max_run,
+        device=a.device,
+    )
+    if a.gap_open is not None:
+        opts.gap_open = a.gap_open
+    if a.gap_extend is not None:
+        # the reference's --gap-extend writes opt_gap_open
+        # (src/progressiveMauve.cpp:673); that bug is deliberately NOT kept
+        opts.gap_extend = a.gap_extend
+    if a.substitution_matrix:
+        from mauvealigner_tpu_torch.ops.dp import read_substitution_matrix
+
+        opts.subst = read_substitution_matrix(a.substitution_matrix)
+    if a.muscle_args:
+        sys.stderr.write("--muscle-args ignored: gapped alignment is on-device DP\n")
+    pm = ProgressiveMauve(opts)
+    if a.mums:
+        ml = pm.find_matches(genomes)
+        with open_out(a.output) as fh:
+            mln.write_match_list(ml, fh, a.seqs, [len(g) for g in genomes])
+        return 0
+    matches = None
+    if a.match_input:
+        with open(a.match_input) as fh:
+            matches, _, _ = mln.read_match_list(fh)
+    res = pm.align(genomes, matches=matches)
+    res.interval_list.seq_filenames = list(a.seqs)
+    from mauvealigner_tpu_torch.analysis import backbone as bbmod
+
+    bb_name = a.backbone_output or (a.output + ".backbone")
+    cols_name = a.bbcols_output or (a.output + ".bbcols")
+    if len(res.backbone_rows):
+        bbmod.write_backbone_seq_file(res.backbone_rows, bb_name, len(genomes))
+        bbmod.write_backbone_cols_file(res.backbone_segments, cols_name)
+        res.interval_list.backbone_filename = cols_name
+    res.interval_list.write_xmfa(a.output)
     if a.profile:
         from mauvealigner_tpu_torch.utils import timing
 

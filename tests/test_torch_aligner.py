@@ -96,8 +96,8 @@ def test_ungapped_mode_xmfa_identical(rng):
 
 
 def test_three_way_ungapped_xmfa_identical(rng):
-    """Three genomes run every phase but the gapped closure, whose 3-way
-    profile DP is slice 2."""
+    """Three genomes through every phase but the gapped closure (the gapped
+    3-way run is in test_torch_progressive.py)."""
     anc = simulate.random_genome(rng, 3000)
     d1, _ = simulate.evolve(anc, rng, sub_rate=0.01)
     d2, _ = simulate.evolve(anc, rng, sub_rate=0.01)
@@ -130,11 +130,27 @@ def test_mid_pipeline_state_feeds_both_packages(rng):
 
 
 def test_seq_profiles_raise(rng):
-    g = interop.genomes([simulate.random_genome(rng, 500)] * 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TorchAligner(interop.aligner_options(AlignerOptions(), "cpu")).align(
-            g, seq_profiles=[np.zeros((500, 5), np.uint8)] * 2
-        )
+    """seq_profiles (the profile-aware closure, normalized count-profile DP)
+    no longer raises: it gives the JAX package's XMFA on count profiles of
+    a few member rows per side."""
+    anc = simulate.random_genome(rng, 3000)
+    der, _ = simulate.evolve(anc, rng, sub_rate=0.03, ins_rate=0.002, del_rate=0.002)
+    genomes = [anc, der]
+    profiles = []
+    for g in genomes:
+        prof = np.zeros((len(g), 5), np.uint8)
+        for _ in range(3):  # three noisy member rows voting per column
+            codes = np.minimum(g.codes, 4).astype(np.int64)
+            hit = rng.random(len(g)) < 0.1
+            codes[hit] = rng.integers(0, 5, size=int(hit.sum()))
+            np.add.at(prof, (np.arange(len(g)), codes), 1)
+        profiles.append(prof)
+    o = AlignerOptions(seed_size=11, use_sml_cache=False)
+    ref = MauveAligner(o).align(genomes, seq_profiles=profiles)
+    got = TorchAligner(interop.aligner_options(o, "cpu")).align(
+        interop.genomes(genomes), seq_profiles=profiles
+    )
+    assert _xmfa(ref.interval_list) == _xmfa(got.interval_list)
 
 
 def test_cli_outputs_identical(rng, tmp_path):
@@ -154,15 +170,20 @@ def test_cli_outputs_identical(rng, tmp_path):
 
 
 def test_port_never_imports_jax():
+    """Every module of the port, imported and its CLI subcommands' help
+    printed, in a fresh interpreter: no jax and nothing of the JAX package."""
     code = (
-        "import sys\n"
-        "import mauvealigner_tpu_torch, mauvealigner_tpu_torch.interop\n"
-        "import mauvealigner_tpu_torch.ops.gotoh_cuda, mauvealigner_tpu_torch.models.aligner\n"
+        "import importlib, pkgutil, sys\n"
+        "import mauvealigner_tpu_torch\n"
+        "for m in pkgutil.walk_packages(mauvealigner_tpu_torch.__path__, 'mauvealigner_tpu_torch.'):\n"
+        "    if not m.name.endswith('__main__'):\n"
+        "        importlib.import_module(m.name)\n"
         "from mauvealigner_tpu_torch.tools.cli import main\n"
-        "try:\n"
-        "    main(['mauveAligner', '--help'])\n"
-        "except SystemExit:\n"
-        "    pass\n"
+        "for tool in ('mauveAligner', 'progressiveMauve'):\n"
+        "    try:\n"
+        "        main([tool, '--help'])\n"
+        "    except SystemExit:\n"
+        "        pass\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'mauvealigner_tpu' or m.startswith('mauvealigner_tpu.')]\n"
         "print('LEAKED', bad) if bad else print('CLEAN')\n"
@@ -172,3 +193,4 @@ def test_port_never_imports_jax():
                          env=env, cwd=ROOT, timeout=300)
     assert out.returncode == 0, out.stderr
     assert "CLEAN" in out.stdout and "usage: mauveAligner" in out.stdout, out.stdout
+    assert "usage: progressiveMauve" in out.stdout, out.stdout

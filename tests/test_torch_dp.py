@@ -112,8 +112,19 @@ def test_pairwise_align_region_groups_matches_jax(rng):
 
 
 def test_align_region_groups_rejects_more_than_two_sequences(rng):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        closure.align_region_groups([[rng.integers(0, 4, 10)] * 3], device="cpu")
+    """Groups of three sequences are no longer rejected: the star closure
+    (code pairs, then count profiles) gives the JAX package's alignments."""
+    groups = []
+    for n in (1, 9, 30, 70):
+        a = rng.integers(0, 5, n)
+        groups.append([a, np.concatenate([a[: n // 2], rng.integers(0, 4, 2), a[n // 2 :]]),
+                       rng.integers(0, 4, max(n - 3, 0))])
+    groups.append([np.zeros(0, np.int64), rng.integers(0, 4, 5), rng.integers(0, 4, 6)])
+    ref = jax_closure.align_region_groups(groups, max_len=64)
+    got = closure.align_region_groups(groups, max_len=64, device="cpu")
+    assert len(ref) == len(got)
+    for r, g in zip(ref, got):
+        assert np.array_equal(r, g)
 
 
 def test_align_sequence_pairs_matches_jax(rng):
