@@ -9,6 +9,13 @@ mauvealigner_tpu_torch/data/*_golden.json.
 
 Usage (from the repository root, one NVIDIA GPU):  python3 chip_smoke.py
 
+Kernel checks compare scores exactly and the decision bytes on each
+problem's live rectangle (dp.live_cell_mask), the only bytes the forward
+kernels write.  After the driven paths, config 3's cold-run launch list
+(gotoh_cuda.LAUNCH_SHAPES) is replayed with random contents at the recorded
+lengths (scripts/gotoh_replay.py): each kernel's summed ms, bound and
+roofline share print on the "main path" lines.
+
 Phases print on their own lines; any failure exits non-zero before the
 result line.  The second-to-last line is one JSON object describing each
 kernel; the last line is {"ok": true, "device": {...}}.  Imports nothing of
@@ -19,7 +26,6 @@ import hashlib
 import io
 import json
 import os
-import subprocess
 import sys
 import time
 
@@ -33,6 +39,12 @@ from mauvealigner_tpu_torch.ops import _build, dp, gotoh_cuda
 from mauvealigner_tpu_torch.utils import digest, simulate, timing
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "scripts"))
+from gotoh_replay import (  # noqa: E402
+    card_line, cuda_ms, forward_bound, print_replay, random_batch, random_profile_batch,
+    replay, traceback_bound,
+)
+
 DATA = os.path.join(ROOT, "mauvealigner_tpu_torch", "data")
 SIDES = (16, 32, 64, 128, 256, 512, 1024, 2048, 4096)
 TIMED_SIDES = (256, 4096)
@@ -50,61 +62,21 @@ def say(msg: str) -> None:
     print(msg, flush=True)
 
 
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0]
-
-
-def random_batch(rng, B: int, side: int):
-    """Code pairs with lengths below the side, plus edge cases: 1 x 1,
-    empty vs non-empty both ways, empty vs empty, and full side."""
-    la = rng.integers(1, side + 1, size=B).astype(np.int32)
-    lb = rng.integers(1, side + 1, size=B).astype(np.int32)
-    edges = [(1, 1), (0, min(5, side)), (min(7, side), 0), (0, 0), (side, side)]
-    for k, (x, y) in enumerate(edges[: B // 2]):
-        la[k], lb[k] = x, y
-    ca = np.full((B, side), 255, np.uint8)
-    cb = np.full((B, side), 255, np.uint8)
-    for k in range(B):
-        a = rng.integers(0, 4, size=la[k]).astype(np.uint8)
-        if k % 2:  # unrelated pair: many gaps
-            b = rng.integers(0, 4, size=lb[k]).astype(np.uint8)
-        else:  # related pair: a, cut or extended to lb, with substitutions
-            b = np.resize(a, lb[k]) if la[k] else rng.integers(0, 4, size=lb[k]).astype(np.uint8)
-            sub = rng.random(lb[k]) < 0.15
-            b[sub] = rng.integers(0, 4, size=int(sub.sum()))
-        a[rng.random(la[k]) < 0.01] = 4  # a few ambiguity codes
-        ca[k, : la[k]] = a
-        cb[k, : lb[k]] = b
-    return ca, cb, la, lb
-
-
-def random_profile_batch(rng, B: int, side: int):
-    """uint8 count profiles of 1-9 rows per side (gap cells excluded, a few
-    ambiguity codes), zero rows past each length, with random_batch's
-    lengths and edge cases; even problems pair related sides."""
-    ca, cb, la, lb = random_batch(rng, B, side)
-    pa = np.zeros((B, side, 5), np.uint8)
-    pb = np.zeros((B, side, 5), np.uint8)
-    for out, codes, lens in ((pa, ca, la), (pb, cb, lb)):
-        for k in range(B):
-            n = int(lens[k])
-            rows = int(rng.integers(1, 10))
-            cc = np.repeat(codes[k, :n][None, :].astype(np.int64), rows, axis=0)
-            mut = rng.random((rows, n)) < 0.1
-            cc[mut] = rng.integers(0, 6, size=int(mut.sum()))  # 5 = gap
-            for r in range(rows):
-                np.add.at(out[k], (np.arange(n)[cc[r] < 5], cc[r][cc[r] < 5]), 1)
-    return pa, pb, la, lb
+def record_time(stats: dict, side: int, B: int, ms: float, plain_ms: float, bound) -> None:
+    """Keep one timed shape's numbers; the last timed side (the largest)
+    fills the kernel's top-level ms / plain_ms / bound_ms."""
+    bound_ms, bound_by = bound
+    row = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+           "roofline_share": bound_ms / ms, "batch": B}
+    stats.setdefault("by_side", {})[side] = row
+    stats.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, bucket=side, batch=B)
 
 
 def check_profile_kernel(dev) -> dict:
     """The profile kernel against its plain-torch version at every bucket
-    side, normalize off and on: identical decision bytes, scores and
-    tracebacks; times at TIMED_SIDES (normalize off, the closure's mode)."""
+    side, normalize off and on: scores and every byte of each problem's
+    live rectangle identical, tracebacks equal; times at TIMED_SIDES
+    (normalize off, the closure's mode)."""
     rng = np.random.default_rng(2025)
     sub = torch.from_numpy(dp.HOXD70.copy()).to(dev)
     go, ge = dp.DEFAULT_GAP_OPEN, dp.DEFAULT_GAP_EXTEND
@@ -115,6 +87,7 @@ def check_profile_kernel(dev) -> dict:
         pa = torch.from_numpy(pa_h).to(dev).to(torch.float32)
         pb = torch.from_numpy(pb_h).to(dev).to(torch.float32)
         la, lb = torch.from_numpy(la_h).to(dev), torch.from_numpy(lb_h).to(dev)
+        live = dp.live_cell_mask(la, lb, side, side)
         for normalize in (False, True):
             s_k, dec_k = gotoh_cuda.gotoh_forward_profiles(pa, pb, la, lb, sub, go, ge, normalize)
             s_p, dec_p = dp.gotoh_forward_profiles_ref(pa, pb, la, lb, sub, go, ge, normalize)
@@ -122,11 +95,11 @@ def check_profile_kernel(dev) -> dict:
             ops_p, cnt_p = dp.gotoh_traceback_ref(dec_p, la, lb)
             torch.cuda.synchronize()
             err = float((s_k - s_p).abs().max())
-            same_dec = bool(torch.equal(dec_k, dec_p))
+            same_dec = bool(torch.equal(dec_k[live], dec_p[live]))
             tb_ok = torch.equal(ops_k, ops_p) and torch.equal(cnt_k, cnt_p)
             say(f"profile kernel-vs-plain side={side} B={B} normalize={normalize}: "
-                f"scores max|diff|={err}, dec bytes {'identical' if same_dec else 'DIFFER'}, "
-                f"traceback {'equal' if tb_ok else 'DIFFERS'}")
+                f"scores max|diff|={err}, live dec bytes ({int(live.sum())}) "
+                f"{'identical' if same_dec else 'DIFFER'}, traceback {'equal' if tb_ok else 'DIFFERS'}")
             if not (err == 0.0 and same_dec and tb_ok):
                 raise SystemExit(f"profile kernel disagrees with its plain version at side {side}")
             stats["max_abs_err"] = max(stats["max_abs_err"], err)
@@ -134,34 +107,28 @@ def check_profile_kernel(dev) -> dict:
             reps_k = 20 if side <= 512 else 5
             f_k = cuda_ms(lambda: gotoh_cuda.gotoh_forward_profiles(pa, pb, la, lb, sub, go, ge), reps_k)
             f_p = cuda_ms(lambda: dp.gotoh_forward_profiles_ref(pa, pb, la, lb, sub, go, ge), 1)
-            say(f"time side={side} B={B}: gotoh_forward_profiles kernel {f_k:.4f} ms, plain {f_p:.4f} ms")
-            stats.update(ms=f_k, plain_ms=f_p, bucket=side, batch=B)
+            bound = forward_bound("gotoh_forward_profiles", la_h, lb_h)
+            say(f"time side={side} B={B}: gotoh_forward_profiles kernel {f_k:.4f} ms, plain "
+                f"{f_p:.4f} ms, bound {bound[0]:.6f} ms ({bound[1]}), roofline share "
+                f"{bound[0] / f_k:.4f}")
+            record_time(stats, side, B, f_k, f_p, bound)
     return stats
-
-
-def cuda_ms(fn, reps: int) -> float:
-    fn()  # warm
-    torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(reps):
-        fn()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / reps
 
 
 def check_kernels(dev) -> dict:
     """Each kernel against its plain-torch version on the card, at every
-    bucket side the closure uses; times at TIMED_SIDES."""
+    bucket side the closure uses: forward scores and every byte of each
+    problem's live rectangle identical, tracebacks equal; times at
+    TIMED_SIDES."""
     rng = np.random.default_rng(2024)
     sub = torch.from_numpy(dp.HOXD70.copy()).to(dev)
     go, ge = dp.DEFAULT_GAP_OPEN, dp.DEFAULT_GAP_EXTEND
     stats = {k: {"max_abs_err": 0.0} for k in ("gotoh_forward_codes", "gotoh_traceback")}
     for side in SIDES:
         B = 64 if side <= 512 else (16 if side <= 1024 else 10)
-        ca, cb, la, lb = (torch.from_numpy(x).to(dev) for x in random_batch(rng, B, side))
+        ca_h, cb_h, la_h, lb_h = random_batch(rng, B, side)
+        ca, cb, la, lb = (torch.from_numpy(x).to(dev) for x in (ca_h, cb_h, la_h, lb_h))
+        live = dp.live_cell_mask(la, lb, side, side)
         s_k, dec_k = gotoh_cuda.gotoh_forward_codes(ca, cb, la, lb, sub, go, ge)
         s_p, dec_p = dp.gotoh_forward_codes_ref(ca, cb, la, lb, sub, go, ge)
         ops_kp, cnt_kp = dp.gotoh_traceback_ref(dec_k, la, lb)
@@ -169,14 +136,14 @@ def check_kernels(dev) -> dict:
         ops_k, cnt_k = gotoh_cuda.gotoh_traceback(dec_p, la, lb)
         torch.cuda.synchronize()
         err_f = float((s_k - s_p).abs().max())
-        same_dec = bool(torch.equal(dec_k, dec_p))
-        fwd_ok = err_f == 0.0 and torch.equal(ops_kp, ops_pp) and torch.equal(cnt_kp, cnt_pp)
+        same_dec = bool(torch.equal(dec_k[live], dec_p[live]))
+        fwd_ok = (err_f == 0.0 and same_dec and torch.equal(ops_kp, ops_pp)
+                  and torch.equal(cnt_kp, cnt_pp))
         err_t = float((ops_k.int() - ops_pp.int()).abs().max())
         tb_ok = torch.equal(ops_k, ops_pp) and torch.equal(cnt_k, cnt_pp)
-        say(f"kernel-vs-plain side={side} B={B}: forward scores max|diff|={err_f} "
-            f"ops {'equal' if fwd_ok else 'DIFFER'} (dec bytes "
-            f"{'identical' if same_dec else 'differ'}); traceback "
-            f"{'equal' if tb_ok else 'DIFFERS'}")
+        say(f"kernel-vs-plain side={side} B={B}: forward scores max|diff|={err_f}, live dec "
+            f"bytes ({int(live.sum())}) {'identical' if same_dec else 'DIFFER'}, ops "
+            f"{'equal' if fwd_ok else 'DIFFER'}; traceback {'equal' if tb_ok else 'DIFFERS'}")
         if not (fwd_ok and tb_ok):
             raise SystemExit(f"kernel disagrees with its plain version at side {side}")
         stats["gotoh_forward_codes"]["max_abs_err"] = max(stats["gotoh_forward_codes"]["max_abs_err"], err_f)
@@ -187,11 +154,25 @@ def check_kernels(dev) -> dict:
             f_p = cuda_ms(lambda: dp.gotoh_forward_codes_ref(ca, cb, la, lb, sub, go, ge), 1)
             t_k = cuda_ms(lambda: gotoh_cuda.gotoh_traceback(dec_p, la, lb), reps_k)
             t_p = cuda_ms(lambda: dp.gotoh_traceback_ref(dec_p, la, lb), 1)
-            say(f"time side={side} B={B}: gotoh_forward_codes kernel {f_k:.4f} ms, "
-                f"plain {f_p:.4f} ms; gotoh_traceback kernel {t_k:.4f} ms, plain {t_p:.4f} ms")
-            stats["gotoh_forward_codes"].update(ms=f_k, plain_ms=f_p, bucket=side, batch=B)
-            stats["gotoh_traceback"].update(ms=t_k, plain_ms=t_p, bucket=side, batch=B)
+            f_b = forward_bound("gotoh_forward_codes", la_h, lb_h)
+            t_b = traceback_bound(la_h, lb_h, side, side)
+            say(f"time side={side} B={B}: gotoh_forward_codes kernel {f_k:.4f} ms, plain "
+                f"{f_p:.4f} ms, bound {f_b[0]:.6f} ms ({f_b[1]}), roofline share "
+                f"{f_b[0] / f_k:.4f}; gotoh_traceback kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
+                f"bound {t_b[0]:.6f} ms, roofline share {t_b[0] / t_k:.4f}")
+            record_time(stats["gotoh_forward_codes"], side, B, f_k, f_p, f_b)
+            record_time(stats["gotoh_traceback"], side, B, t_k, t_p, t_b)
     return stats
+
+
+def mainpath_times(dev, shapes) -> dict:
+    """Replay a progressive run's recorded launches (random contents at the
+    recorded lengths, scripts/gotoh_replay.py): per kernel the summed ms,
+    summed bound and roofline share.  These launches count in no run's
+    LAUNCHES: the counts are reset before every driven path."""
+    res = replay(shapes, gotoh_cuda, dev)
+    print_replay("main path (config 3 cold-run launch list)", res, card_line())
+    return res
 
 
 def config1(dev) -> dict:
@@ -258,6 +239,7 @@ def progressive_run(genomes, golden: dict, label: str, dev, need: tuple) -> dict
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launches = dict(gotoh_cuda.LAUNCHES)
+    shapes = list(gotoh_cuda.LAUNCH_SHAPES)
     branch = "tree" if "tree_progressive" in timing.GLOBAL.phases else "extant"
     got = digest.progressive_digest(res, branch, golden["bbcols_name"])
     say(f"{label}: {secs:.3f} s, {json.dumps(got)}, launches {launches}, "
@@ -271,7 +253,7 @@ def progressive_run(genomes, golden: dict, label: str, dev, need: tuple) -> dict
     for k in need:
         if launches[k] <= 0:
             raise SystemExit(f"{label}: kernel {k} was never launched")
-    return {"seconds": secs, "launches": launches, "result": res, "digest": got}
+    return {"seconds": secs, "launches": launches, "shapes": shapes, "result": res, "digest": got}
 
 
 def load_golden(name: str, genomes) -> dict:
@@ -300,7 +282,7 @@ def config3(dev) -> dict:
     runs = {}
     for label in ("cold", "warm"):
         r = progressive_run(genomes, golden, f"config3 {label}", dev, need)
-        runs[label] = {"seconds": r["seconds"], "launches": r["launches"]}
+        runs[label] = {"seconds": r["seconds"], "launches": r["launches"], "shapes": r["shapes"]}
     return runs
 
 
@@ -349,10 +331,12 @@ def main() -> int:
     runs = config1(dev)
     runs3 = config3(dev)
     runs_tree = tree_branch(dev)
+    mainpath = mainpath_times(dev, runs3["cold"]["shapes"])
 
     kernels = []
     for name, replaces in KERNELS.items():
         s = stats[name]
+        m = mainpath[name]
         kernels.append({
             "name": name,
             "route": "cuda",
@@ -367,10 +351,20 @@ def main() -> int:
                 "tree": runs_tree["launches"][name],
             },
             "max_abs_err": s["max_abs_err"],
+            # ms, plain_ms and bound_ms at the largest timed side
             "ms": s["ms"],
             "plain_ms": s["plain_ms"],
+            "bound_ms": s["bound_ms"],
+            "bound_by": s["bound_by"],
+            # no PyTorch call computes a Gotoh DP
+            "library_ms": None,
             "bucket": s["bucket"],
             "batch": s["batch"],
+            "by_side": s["by_side"],
+            # config 3's cold-run launch list replayed: summed kernel ms and bound
+            "mainpath_ms": m["ms"],
+            "mainpath_bound_ms": m["bound_ms"],
+            "mainpath_launches": m["launches"],
         })
     say(card_line())
     say(json.dumps({"kernels": kernels}))

@@ -75,9 +75,9 @@ def _compile(so: str) -> None:
 
 def _bind(lib: ctypes.CDLL) -> None:
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.gotoh_forward_codes_launch.argtypes = [P, P, P, P, P, F, F, I, I, I, P, P, P]
+    lib.gotoh_forward_codes_launch.argtypes = [P, P, P, P, P, F, F, I, I, I, I, P, P, P]
     lib.gotoh_forward_codes_launch.restype = I
-    lib.gotoh_forward_profiles_launch.argtypes = [P, P, P, P, P, F, F, I, I, I, I, P, P, P]
+    lib.gotoh_forward_profiles_launch.argtypes = [P, P, P, P, P, F, F, I, I, I, I, I, P, P, P]
     lib.gotoh_forward_profiles_launch.restype = I
     lib.gotoh_traceback_launch.argtypes = [P, P, P, I, I, I, P, P, P]
     lib.gotoh_traceback_launch.restype = I

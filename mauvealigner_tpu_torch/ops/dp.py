@@ -257,6 +257,22 @@ def gotoh_forward_profiles_ref(
     return _gotoh_forward_ref(B, M, N, lens_a, lens_b, gap_open, gap_extend, dev, live_scores)
 
 
+def live_cell_mask(
+    lens_a: torch.Tensor,  # int32 [B]
+    lens_b: torch.Tensor,  # int32 [B]
+    M: int,
+    N: int,
+) -> torch.Tensor:
+    """bool [B, M+N+1, M+1]: True exactly at dec[b, i+j, i] for
+    0 <= i <= la, 0 <= j <= lb, the cells a problem's score and traceback
+    depend on and the only ones the CUDA forward kernels write."""
+    dev = lens_a.device
+    d = torch.arange(M + N + 1, device=dev)[None, :, None]
+    i = torch.arange(M + 1, device=dev)[None, None, :]
+    j = d - i
+    return (i <= lens_a.long()[:, None, None]) & (j >= 0) & (j <= lens_b.long()[:, None, None])
+
+
 def gotoh_traceback_ref(
     dec: torch.Tensor,     # uint8 [B, M+N+1, M+1]
     lens_a: torch.Tensor,  # int32 [B]
@@ -315,6 +331,10 @@ def align_code_pairs_batch_async(
         raise ValueError(f"lengths must lie in [0, {M}] x [0, {N}]")
     timing.GLOBAL.add("dp_cells", float(B) * M * N)
     timing.GLOBAL.add("dp_calls", 1.0)
+    gotoh_cuda.LAUNCH_SHAPES.append(dict(
+        kernel="gotoh_forward_codes", M=M, N=N, B=B, lens_a=la_h.copy(), lens_b=lb_h.copy(),
+        normalize=False,
+    ))
     ca = torch.from_numpy(np.ascontiguousarray(codes_a, np.uint8)).to(device)
     cb = torch.from_numpy(np.ascontiguousarray(codes_b, np.uint8)).to(device)
     la = torch.from_numpy(la_h).to(device)
@@ -377,6 +397,10 @@ def align_profiles_batch_async(
         raise ValueError(f"lengths must lie in [0, {M}] x [0, {N}]")
     timing.GLOBAL.add("dp_cells", float(B) * M * N)
     timing.GLOBAL.add("dp_calls", 1.0)
+    gotoh_cuda.LAUNCH_SHAPES.append(dict(
+        kernel="gotoh_forward_profiles", M=M, N=N, B=B, lens_a=la_h.copy(), lens_b=lb_h.copy(),
+        normalize=bool(normalize),
+    ))
 
     def ship(p):
         if p.dtype != np.uint8:

@@ -10,7 +10,13 @@ ops/_build.py on first use.
 
 Dispatch: a CUDA tensor launches the kernel (or raises); a CPU tensor runs
 the plain-torch version in ops/dp.py.  LAUNCHES counts the kernel launches
-of each wrapper (plain-version calls are not counted).
+of each wrapper (plain-version calls are not counted).  LAUNCH_SHAPES lists
+the shape of every forward call of dp.align_*_batch_async, made from the
+lengths they hold on the host: a replayable record of a run's launches.
+
+The forward kernels write only the live rectangle of each problem
+(dp.live_cell_mask); the other bytes of `dec` are left as torch.empty gives
+them.
 """
 
 from __future__ import annotations
@@ -22,19 +28,24 @@ import torch
 
 from mauvealigner_tpu_torch.ops import dp
 
-# the largest DP side whose 7 state rows (7 x 4 x (side+1) bytes) fit a
-# Hopper block's 227 KB of shared memory; larger sides raise
+# the largest DP side whose bottom-row buffers and staged B codes
+# (16 x (side + 33) + side + 64 bytes: 139,856 at 8192) fit a Hopper block's
+# 227 KB of shared memory; larger sides raise
 MAX_SIDE = 8192
-# the profile kernel also stages pB (20 x side bytes) in shared memory:
-# 7 x 4 x 4097 + 20 x 4096 bytes = 192 KB fits, the next bucket does not
+# the profile kernel stages pB (20 bytes a column) instead:
+# 16 x 4129 + 20 x 4160 = 149,264 bytes fits, the next bucket does not
 PROFILE_MAX_SIDE = 4096
 
 LAUNCHES = {"gotoh_forward_codes": 0, "gotoh_forward_profiles": 0, "gotoh_traceback": 0}
+# one dict per forward call of dp.align_*_batch_async: kernel, M, N, B,
+# lens_a, lens_b (host int32 arrays) and normalize
+LAUNCH_SHAPES: list = []
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    LAUNCH_SHAPES.clear()
 
 
 def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape, device) -> None:
@@ -56,6 +67,19 @@ def _raise_on_error(lib, err: int, what: str) -> None:
 
 def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
+
+
+def _kernel_gaps(gap_open: float, gap_extend: float) -> Tuple[float, float]:
+    """(go_ge, ge) for a kernel launch.  The kernels take gap scores <= 0:
+    only then do the cells left of column 0 hold the NEG sentinels that the
+    kernels' column-0 bytes assume (csrc/gotoh.cu)."""
+    go_ge, ge = dp.gap_scalars(gap_open, gap_extend)
+    if go_ge > 0 or ge > 0:
+        raise ValueError(
+            f"the CUDA Gotoh kernels take gap scores <= 0, got gap_open={gap_open}, "
+            f"gap_extend={gap_extend}"
+        )
+    return go_ge, ge
 
 
 def gotoh_forward_codes(
@@ -95,10 +119,10 @@ def gotoh_forward_codes(
     from mauvealigner_tpu_torch.ops import _build
 
     lib = _build.library()
-    go_ge, ge = dp.gap_scalars(gap_open, gap_extend)
+    go_ge, ge = _kernel_gaps(gap_open, gap_extend)
     err = lib.gotoh_forward_codes_launch(
         _ptr(codes_a), _ptr(codes_b), _ptr(lens_a), _ptr(lens_b), _ptr(subst),
-        go_ge, ge, B, M, N, _ptr(scores), _ptr(dec),
+        go_ge, ge, B, M, N, 0, _ptr(scores), _ptr(dec),
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
     )
     _raise_on_error(lib, err, "gotoh_forward_codes")
@@ -145,10 +169,10 @@ def gotoh_forward_profiles(
     from mauvealigner_tpu_torch.ops import _build
 
     lib = _build.library()
-    go_ge, ge = dp.gap_scalars(gap_open, gap_extend)
+    go_ge, ge = _kernel_gaps(gap_open, gap_extend)
     err = lib.gotoh_forward_profiles_launch(
         _ptr(prof_a), _ptr(prof_b), _ptr(lens_a), _ptr(lens_b), _ptr(subst),
-        go_ge, ge, B, M, N, int(bool(normalize)), _ptr(scores), _ptr(dec),
+        go_ge, ge, B, M, N, int(bool(normalize)), 0, _ptr(scores), _ptr(dec),
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
     )
     _raise_on_error(lib, err, "gotoh_forward_profiles")

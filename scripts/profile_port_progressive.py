@@ -63,7 +63,7 @@ def main() -> int:
         wall = time.perf_counter() - t0
     print(timing.GLOBAL.report().rstrip())
     events = prof.key_averages()
-    print(events.table(sort_by="self_device_time_total", row_limit=15))
+    print(events.table(sort_by="self_device_time_total", row_limit=30))
     busy_us = sum(
         e.self_device_time_total for e in events
         if e.device_type == DeviceType.CUDA and not e.is_user_annotation

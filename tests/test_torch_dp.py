@@ -160,3 +160,90 @@ def test_cuda_device_without_gpu_raises():
         pytest.skip("checks the behaviour on a machine without a GPU")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         MauveAligner(AlignerOptions(device="cuda"))
+
+
+def _live_inputs(rng, kind, B, side):
+    """Code pairs or count profiles at one bucket side, with edge lengths
+    0 and side among them; returns (forward inputs, la, lb)."""
+    ca, cb, la, lb = _batch(rng, B, side, side)
+    for k, (x, y) in enumerate([(0, 0), (0, side), (side, 0), (side, side), (1, side)]):
+        la[k], lb[k] = x, y
+    t = [torch.from_numpy(x) for x in (ca, cb, la, lb)]
+    if kind == "codes":
+        return t, la, lb
+    pa = torch.from_numpy(_one_hot(ca, la, side) * rng.integers(1, 4, size=(B, side, 1)))
+    pb = torch.from_numpy(_one_hot(cb, lb, side) * rng.integers(1, 4, size=(B, side, 1)))
+    return [pa.float(), pb.float(), t[2], t[3]], la, lb
+
+
+def _forward_ref(kind, args, go=GO, ge=GE):
+    sub = torch.from_numpy(dp.HOXD70.copy())
+    if kind == "codes":
+        return dp.gotoh_forward_codes_ref(*args, sub, go, ge)
+    return dp.gotoh_forward_profiles_ref(*args, sub, go, ge, True)
+
+
+@pytest.mark.parametrize("kind", ["codes", "profiles"])
+def test_live_cell_mask_holds_everything_the_traceback_reads(rng, kind):
+    """The mask counts sum (la+1)(lb+1) cells, and random bytes outside it
+    leave the traceback's ops and counts unchanged: the premise of kernels
+    that write the live rectangle only."""
+    side = 24
+    args, la, lb = _live_inputs(rng, kind, 9, side)
+    _, dec = _forward_ref(kind, args)
+    mask = dp.live_cell_mask(args[2], args[3], side, side)
+    assert mask.shape == dec.shape and mask.dtype == torch.bool
+    assert int(mask.sum()) == int(((la.astype(np.int64) + 1) * (lb + 1)).sum())
+    noisy = torch.from_numpy(rng.integers(0, 256, size=tuple(dec.shape), dtype=np.uint8))
+    noisy[mask] = dec[mask]
+    ops, counts = dp.gotoh_traceback_ref(dec, args[2], args[3])
+    ops2, counts2 = dp.gotoh_traceback_ref(noisy, args[2], args[3])
+    assert torch.equal(ops, ops2) and torch.equal(counts, counts2)
+
+
+@pytest.mark.parametrize("go,ge", [(GO, GE), (-10.0, -1.0), (-0.3, -0.7), (0.0, 0.0), (-1000.0, -100.0)])
+@pytest.mark.parametrize("kind", ["codes", "profiles"])
+def test_edge_bytes_follow_the_sentinel_closed_form(rng, kind, go, ge):
+    """Row 0 and column 0 of the live rectangle hold the bytes the CUDA
+    kernels write from the NEG sentinels, as f32 rounds them: row 0 is an
+    E run whose F-open bit is f32(NEG + go_ge) >= f32(NEG + ge), column 0
+    an F run whose E-open bit is that same value."""
+    side = 20
+    args, la, lb = _live_inputs(rng, kind, 8, side)
+    _, dec = _forward_ref(kind, args, go, ge)
+    f32 = np.float32
+    go_ge, gev = (f32(x) for x in dp.gap_scalars(go, ge))
+    neg = f32(dp.NEG)
+    edge_open = bool(f32(neg + go_ge) >= f32(neg + gev))
+    for b in range(len(la)):
+        assert int(dec[b, 0, 0]) == 0
+        e = f32(0.0)  # H(0, j-1) = E(0, j-1) for j >= 2; H(0,0) = 0, E(0,0) = NEG
+        for j in range(1, int(lb[b]) + 1):
+            e_prev = neg if j == 1 else e
+            e_open = bool(f32(e + go_ge) >= f32(e_prev + gev))
+            e = max(f32(e + go_ge), f32(e_prev + gev))
+            assert int(dec[b, j, 0]) == 2 | (e_open << 2) | (edge_open << 3), (b, j)
+        f = f32(0.0)
+        for i in range(1, int(la[b]) + 1):
+            f_prev = neg if i == 1 else f
+            f_open = bool(f32(f + go_ge) >= f32(f_prev + gev))
+            f = max(f32(f + go_ge), f32(f_prev + gev))
+            assert int(dec[b, i, i]) == 1 | (edge_open << 2) | (f_open << 3), (b, i)
+
+
+def test_batch_calls_record_launch_shapes(rng):
+    """align_*_batch_async append each forward call's shape and host
+    lengths to gotoh_cuda.LAUNCH_SHAPES; reset_launches() clears it."""
+    ca, cb, la, lb = _batch(rng, 5, 16, 16)
+    gotoh_cuda.reset_launches()
+    dp.align_code_pairs_batch(ca, cb, la, lb, device="cpu")
+    pa, pb = _one_hot(ca, la, 16).astype(np.uint8), _one_hot(cb, lb, 16).astype(np.uint8)
+    dp.align_profiles_batch(pa, pb, la, lb, normalize=True, device="cpu")
+    got = gotoh_cuda.LAUNCH_SHAPES
+    assert [(g["kernel"], g["M"], g["N"], g["B"], g["normalize"]) for g in got] == [
+        ("gotoh_forward_codes", 16, 16, 5, False), ("gotoh_forward_profiles", 16, 16, 5, True)]
+    for g in got:
+        assert np.array_equal(g["lens_a"], la) and np.array_equal(g["lens_b"], lb)
+    assert set(gotoh_cuda.LAUNCHES.values()) == {0}
+    gotoh_cuda.reset_launches()
+    assert gotoh_cuda.LAUNCH_SHAPES == []

@@ -1,5 +1,7 @@
 """The port's CUDA kernels and its GPU main path, against the plain-torch
-versions (exact: DP scores are integer-valued f32, ops and XMFA are bytes).
+versions (exact: DP scores are integer-valued f32, ops and XMFA are bytes;
+decision bytes are compared on each problem's live rectangle,
+dp.live_cell_mask, the only bytes the forward kernels write).
 
 Every test here needs an NVIDIA GPU and skips without one.  The file
 imports neither jax nor the JAX package, so it runs on a machine with only
@@ -62,7 +64,8 @@ def test_kernels_match_plain(rng, cuda_device, side):
     o_k, c_k = gotoh_cuda.gotoh_traceback(d_p, la, lb)
     o_p, c_p = dp.gotoh_traceback_ref(d_p, la, lb)
     torch.cuda.synchronize()
-    assert torch.equal(s_k, s_p) and torch.equal(d_k, d_p)
+    live = dp.live_cell_mask(la, lb, side, side)
+    assert torch.equal(s_k, s_p) and torch.equal(d_k[live], d_p[live])
     assert torch.equal(o_k, o_p) and torch.equal(c_k, c_p)
     assert gotoh_cuda.LAUNCHES["gotoh_forward_codes"] == before["gotoh_forward_codes"] + 1
     assert gotoh_cuda.LAUNCHES["gotoh_traceback"] == before["gotoh_traceback"] + 1
@@ -75,6 +78,54 @@ def test_kernel_rejects_sides_past_shared_memory(cuda_device):
     sub = torch.from_numpy(dp.HOXD70.copy()).to(cuda_device)
     with pytest.raises(ValueError, match="shared-memory"):
         gotoh_cuda.gotoh_forward_codes(z, z, n, n, sub, GO, GE)
+
+
+@pytest.mark.parametrize("warps", [1, 2, 3, 8, 16])
+def test_every_block_shape_matches_plain(rng, cuda_device, warps):
+    """Both forward kernels at one side with each number of warps per
+    problem the launcher may pick (one warp walking its strips in turn, or
+    a phased block), called through the library with the shape forced."""
+    import ctypes
+
+    from mauvealigner_tpu_torch.ops import _build
+
+    side = 200
+    ca, cb, la, lb = _batch(rng, 10, side, cuda_device)
+    pa, pb, pla, plb = _profiles(rng, 10, side, cuda_device)
+    sub = torch.from_numpy(dp.HOXD70.copy()).to(cuda_device)
+    lib = _build.library()
+    go_ge, ge = dp.gap_scalars(GO, GE)
+    stream = ctypes.c_void_p(torch.cuda.current_stream(cuda_device).cuda_stream)
+    p = gotoh_cuda._ptr
+    for kind in ("codes", "profiles"):
+        scores = torch.empty(10, dtype=torch.float32, device=cuda_device)
+        dec = torch.empty((10, 2 * side + 1, side + 1), dtype=torch.uint8, device=cuda_device)
+        if kind == "codes":
+            err = lib.gotoh_forward_codes_launch(
+                p(ca), p(cb), p(la), p(lb), p(sub), go_ge, ge, 10, side, side, warps,
+                p(scores), p(dec), stream)
+            s_p, d_p = dp.gotoh_forward_codes_ref(ca, cb, la, lb, sub, GO, GE)
+            live = dp.live_cell_mask(la, lb, side, side)
+        else:
+            err = lib.gotoh_forward_profiles_launch(
+                p(pa), p(pb), p(pla), p(plb), p(sub), go_ge, ge, 10, side, side, 1, warps,
+                p(scores), p(dec), stream)
+            s_p, d_p = dp.gotoh_forward_profiles_ref(pa, pb, pla, plb, sub, GO, GE, True)
+            live = dp.live_cell_mask(pla, plb, side, side)
+        assert err == 0
+        torch.cuda.synchronize()
+        assert torch.equal(scores, s_p) and torch.equal(dec[live], d_p[live]), kind
+
+
+def test_kernels_reject_positive_gap_scores(cuda_device):
+    z = torch.zeros((1, 16), dtype=torch.uint8, device=cuda_device)
+    n = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+    sub = torch.from_numpy(dp.HOXD70.copy()).to(cuda_device)
+    with pytest.raises(ValueError, match="gap scores <= 0"):
+        gotoh_cuda.gotoh_forward_codes(z, z, n, n, sub, 5.0, -1.0)
+    zp = torch.zeros((1, 16, 5), dtype=torch.float32, device=cuda_device)
+    with pytest.raises(ValueError, match="gap scores <= 0"):
+        gotoh_cuda.gotoh_forward_profiles(zp, zp, n, n, sub, -5.0, 1.0)
 
 
 def test_aligner_gpu_matches_cpu(rng, cuda_device):
@@ -129,7 +180,8 @@ def test_profile_kernel_matches_plain(rng, cuda_device, side, normalize):
     s_k, d_k = gotoh_cuda.gotoh_forward_profiles(pa, pb, la, lb, sub, GO, GE, normalize)
     s_p, d_p = dp.gotoh_forward_profiles_ref(pa, pb, la, lb, sub, GO, GE, normalize)
     torch.cuda.synchronize()
-    assert torch.equal(s_k, s_p) and torch.equal(d_k, d_p)
+    live = dp.live_cell_mask(la, lb, side, side)
+    assert torch.equal(s_k, s_p) and torch.equal(d_k[live], d_p[live])
     assert gotoh_cuda.LAUNCHES["gotoh_forward_profiles"] == before + 1
 
 
