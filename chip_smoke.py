@@ -11,10 +11,13 @@ Usage (from the repository root, one NVIDIA GPU):  python3 chip_smoke.py
 
 Kernel checks compare scores exactly and the decision bytes on each
 problem's live rectangle (dp.live_cell_mask), the only bytes the forward
-kernels write.  After the driven paths, config 3's cold-run launch list
-(gotoh_cuda.LAUNCH_SHAPES) is replayed with random contents at the recorded
-lengths (scripts/gotoh_replay.py): each kernel's summed ms, bound and
-roofline share print on the "main path" lines.
+kernels write; the traceback kernel is held to the plain traceback on the
+plain decisions and on each forward kernel's decisions with every byte
+outside the live rectangles poisoned (POISON).  After the driven paths,
+config 3's cold-run launch list (gotoh_cuda.LAUNCH_SHAPES) is replayed with
+random contents at the recorded lengths (scripts/gotoh_replay.py): each
+kernel's summed ms, bound and roofline share print on the "main path"
+lines, and the traceback's chain floor beside its bound.
 
 Phases print on their own lines; any failure exits non-zero before the
 result line.  The second-to-last line is one JSON object describing each
@@ -41,8 +44,8 @@ from mauvealigner_tpu_torch.utils import digest, simulate, timing
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "scripts"))
 from gotoh_replay import (  # noqa: E402
-    card_line, cuda_ms, forward_bound, print_replay, random_batch, random_profile_batch,
-    replay, traceback_bound,
+    TB_CYCLES_PER_STEP, card_line, cuda_ms, forward_bound, print_replay, random_batch,
+    random_profile_batch, replay, sm_clock_mhz, traceback_bound, traceback_chain_floor,
 )
 
 DATA = os.path.join(ROOT, "mauvealigner_tpu_torch", "data")
@@ -50,10 +53,11 @@ SIDES = (16, 32, 64, 128, 256, 512, 1024, 2048, 4096)
 TIMED_SIDES = (256, 4096)
 # the TPU kernel has two input modes; each is its own CUDA kernel here
 KERNELS = {
-    "gotoh_forward_codes": "mauvealigner_tpu/ops/dp_pallas.py:182",
-    "gotoh_forward_profiles": "mauvealigner_tpu/ops/dp_pallas.py:182",
+    "gotoh_forward_codes": "mauvealigner_tpu/ops/dp_pallas.py:183",
+    "gotoh_forward_profiles": "mauvealigner_tpu/ops/dp_pallas.py:183",
     "gotoh_traceback": "mauvealigner_tpu/ops/dp.py:286",
 }
+POISON = 0xEE
 DIGEST_KEYS = ("branch", "guide_tree", "n_lcbs", "n_intervals",
                "xmfa_sha256", "backbone_sha256", "bbcols_sha256")
 
@@ -62,14 +66,26 @@ def say(msg: str) -> None:
     print(msg, flush=True)
 
 
-def record_time(stats: dict, side: int, B: int, ms: float, plain_ms: float, bound) -> None:
+def record_time(stats: dict, side: int, B: int, ms: float, plain_ms: float, bound,
+                **extra) -> None:
     """Keep one timed shape's numbers; the last timed side (the largest)
-    fills the kernel's top-level ms / plain_ms / bound_ms."""
+    fills the kernel's top-level ms / plain_ms / bound_ms (and extra)."""
     bound_ms, bound_by = bound
     row = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-           "roofline_share": bound_ms / ms, "batch": B}
+           "roofline_share": bound_ms / ms, "batch": B, **extra}
     stats.setdefault("by_side", {})[side] = row
-    stats.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, bucket=side, batch=B)
+    stats.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, bucket=side,
+                 batch=B, **extra)
+
+
+def poisoned_traceback_ok(dec, live, la, lb, ops_ref, cnt_ref) -> bool:
+    """The traceback kernel on a forward kernel's decisions with every byte
+    outside the live rectangles set to POISON equals the plain traceback."""
+    dec = dec.clone()
+    dec[~live] = POISON
+    ops, cnt = gotoh_cuda.gotoh_traceback(dec, la, lb)
+    torch.cuda.synchronize()
+    return torch.equal(ops, ops_ref) and torch.equal(cnt, cnt_ref)
 
 
 def check_profile_kernel(dev) -> dict:
@@ -97,10 +113,12 @@ def check_profile_kernel(dev) -> dict:
             err = float((s_k - s_p).abs().max())
             same_dec = bool(torch.equal(dec_k[live], dec_p[live]))
             tb_ok = torch.equal(ops_k, ops_p) and torch.equal(cnt_k, cnt_p)
+            poison_ok = poisoned_traceback_ok(dec_k, live, la, lb, ops_p, cnt_p)
             say(f"profile kernel-vs-plain side={side} B={B} normalize={normalize}: "
                 f"scores max|diff|={err}, live dec bytes ({int(live.sum())}) "
-                f"{'identical' if same_dec else 'DIFFER'}, traceback {'equal' if tb_ok else 'DIFFERS'}")
-            if not (err == 0.0 and same_dec and tb_ok):
+                f"{'identical' if same_dec else 'DIFFER'}, traceback {'equal' if tb_ok else 'DIFFERS'}"
+                f", on poisoned dead bytes {'equal' if poison_ok else 'DIFFERS'}")
+            if not (err == 0.0 and same_dec and tb_ok and poison_ok):
                 raise SystemExit(f"profile kernel disagrees with its plain version at side {side}")
             stats["max_abs_err"] = max(stats["max_abs_err"], err)
         if side in TIMED_SIDES:
@@ -123,6 +141,7 @@ def check_kernels(dev) -> dict:
     rng = np.random.default_rng(2024)
     sub = torch.from_numpy(dp.HOXD70.copy()).to(dev)
     go, ge = dp.DEFAULT_GAP_OPEN, dp.DEFAULT_GAP_EXTEND
+    sm_mhz = sm_clock_mhz()
     stats = {k: {"max_abs_err": 0.0} for k in ("gotoh_forward_codes", "gotoh_traceback")}
     for side in SIDES:
         B = 64 if side <= 512 else (16 if side <= 1024 else 10)
@@ -140,10 +159,12 @@ def check_kernels(dev) -> dict:
         fwd_ok = (err_f == 0.0 and same_dec and torch.equal(ops_kp, ops_pp)
                   and torch.equal(cnt_kp, cnt_pp))
         err_t = float((ops_k.int() - ops_pp.int()).abs().max())
-        tb_ok = torch.equal(ops_k, ops_pp) and torch.equal(cnt_k, cnt_pp)
+        tb_ok = (torch.equal(ops_k, ops_pp) and torch.equal(cnt_k, cnt_pp)
+                 and poisoned_traceback_ok(dec_k, live, la, lb, ops_pp, cnt_pp))
         say(f"kernel-vs-plain side={side} B={B}: forward scores max|diff|={err_f}, live dec "
             f"bytes ({int(live.sum())}) {'identical' if same_dec else 'DIFFER'}, ops "
-            f"{'equal' if fwd_ok else 'DIFFER'}; traceback {'equal' if tb_ok else 'DIFFERS'}")
+            f"{'equal' if fwd_ok else 'DIFFER'}; traceback on the plain and the poisoned "
+            f"kernel decisions {'equal' if tb_ok else 'DIFFERS'}")
         if not (fwd_ok and tb_ok):
             raise SystemExit(f"kernel disagrees with its plain version at side {side}")
         stats["gotoh_forward_codes"]["max_abs_err"] = max(stats["gotoh_forward_codes"]["max_abs_err"], err_f)
@@ -155,13 +176,17 @@ def check_kernels(dev) -> dict:
             t_k = cuda_ms(lambda: gotoh_cuda.gotoh_traceback(dec_p, la, lb), reps_k)
             t_p = cuda_ms(lambda: dp.gotoh_traceback_ref(dec_p, la, lb), 1)
             f_b = forward_bound("gotoh_forward_codes", la_h, lb_h)
-            t_b = traceback_bound(la_h, lb_h, side, side)
+            steps = cnt_pp.cpu().numpy()
+            t_b = traceback_bound(steps, side, side)
+            floor = traceback_chain_floor(steps, sm_mhz)
             say(f"time side={side} B={B}: gotoh_forward_codes kernel {f_k:.4f} ms, plain "
                 f"{f_p:.4f} ms, bound {f_b[0]:.6f} ms ({f_b[1]}), roofline share "
                 f"{f_b[0] / f_k:.4f}; gotoh_traceback kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
-                f"bound {t_b[0]:.6f} ms, roofline share {t_b[0] / t_k:.4f}")
+                f"bound {t_b[0]:.6f} ms, roofline share {t_b[0] / t_k:.4f}, chain floor "
+                f"{floor:.4f} ms (longest walk {int(steps.max())} steps x {TB_CYCLES_PER_STEP} "
+                f"cycles at {sm_mhz:.0f} MHz), {t_k / floor:.2f}x the floor")
             record_time(stats["gotoh_forward_codes"], side, B, f_k, f_p, f_b)
-            record_time(stats["gotoh_traceback"], side, B, t_k, t_p, t_b)
+            record_time(stats["gotoh_traceback"], side, B, t_k, t_p, t_b, chain_floor_ms=floor)
     return stats
 
 
@@ -366,6 +391,12 @@ def main() -> int:
             "mainpath_bound_ms": m["bound_ms"],
             "mainpath_launches": m["launches"],
         })
+        if name == "gotoh_traceback":
+            # the longest walk's dependent steps (scripts/gotoh_replay.py),
+            # at the largest timed side and summed over config 3's list
+            kernels[-1].update(chain_floor_ms=s["chain_floor_ms"],
+                               mainpath_chain_floor_ms=m["chain_floor_ms"],
+                               mainpath_after_forward_ms=m["after_forward_ms"])
     say(card_line())
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

@@ -449,15 +449,207 @@ __global__ void __launch_bounds__(kMaxThreads, 1) gotoh_forward_profiles_kernel(
 
 // gotoh_traceback_kernel replaces the XLA traceback
 // mauvealigner_tpu/ops/dp.py::gotoh_traceback (a fixed-trip lax.scan, a
-// TPU miscompile workaround).  One thread per problem walks from (mA, mB)
-// to (0, 0) with the H/F/E mode state and writes ops end first; it reads
-// only cells of the live rectangle.
+// TPU miscompile workaround) and serves both forward kernels.  A problem
+// walks from (la, lb) towards (0, 0) with the H/F/E mode state, for at most
+// L = M+N steps, reading the byte of cell (i, j) at (i+j)(M+1) + i clamped
+// to its slab, as the plain version does (so a walk that garbage bytes
+// lead out of the rectangle reads what the plain version reads).  It writes
+// ops end first, OP_NONE (0) after the walk, and the step count.
 //
-// Bound on this card: one dependent byte load from the decision array per
-// step, up to M+N steps; loads of neighbouring threads hit unrelated
-// problems.  Later work: fuse it into the forward kernel's CTA with the
-// decisions still in shared memory.
-__global__ void gotoh_traceback_kernel(
+// Bound on this card: one dependent byte a step.  The bytes (each step's
+// byte read once, the ops and counts written:
+// scripts/gotoh_replay.py::traceback_bound) take microseconds; the floor
+// is the chain of dependent steps, the longest walk of a launch times the
+// latency of one step (scripts/gotoh_replay.py::traceback_chain_floor: 50
+// cycles assumed, a shared-memory load and a few integer operations, at
+// the maximum SM clock that nvidia-smi reads, 1980 MHz on an H100 SXM).
+// The design makes a step one shared-memory load and a few integer
+// operations instead of a load from L2 or HBM:
+//
+// - A warp per problem, per_block problems a block, so a launch spreads
+//   over every SM.  The 32 lanes walk the problem in lockstep, each reading
+//   the same shared byte (a broadcast), so every lane knows the position
+//   without a shuffle.
+// - Tiles.  A step goes from (d = i+j, i) to (d-2, i-1), (d-1, i-1) or
+//   (d-1, i), so from an anchor (d0, i0) the walk stays at least R steps
+//   inside diagonals d0-2R+1 .. d0 and rows i0-R+1 .. i0, the tile: on
+//   each diagonal R contiguous bytes of dec.  The warp copies a tile into
+//   shared memory in 16-byte cp.async chunks (a row of dec is M+1 bytes, so
+//   TMA's 16-byte stride rule does not fit); a chunk that would cross an
+//   end of the slab is read byte by byte at clamped indices instead, so no
+//   read leaves the slab, and diagonals below 0 (only a walk on garbage
+//   bytes goes there) take the clamped byte 0 without a read each.
+//   Diagonal r of a tile lies at a pitch of K = P - (M+1) mod 16 bytes (P a
+//   multiple of 16), which keeps every chunk 16-byte aligned in shared
+//   memory and puts the byte of (d0 - r, i0 - R + 1 + q) at base + rK + q:
+//   a step adds one of three constants to its pointer.  R is the least of
+//   17, 33 and 65 above M (65 for larger M), so a problem of side <= 64
+//   loads one tile.  A tile costs about a microsecond of latency plus the
+//   time of its copies, which grows as R^2 while the steps it serves grow
+//   as R: tiles of 129 rows timed slower than 65 at side 4096 and on
+//   config 3's launch list (PERF.md).
+// - One tile at a time: the next is loaded where the walk leaves the last.
+//   A second buffer filled ahead (issued half-way through a tile, anchored
+//   where the walk stood) timed slower too: it loaded twice the tiles, and
+//   the warp that issues the copies is the warp that walks.
+// - Ops go to a ring in shared memory (lane 0, a byte a step) and out to
+//   device memory 32 bytes a warp store at each tile; the OP_NONE tail is
+//   written by the whole warp, 16 bytes a lane where aligned.  A problem's
+//   offsets into dec and ops are 64-bit; offsets inside its slab fit 32.
+
+#ifndef CUDA_CPU_EMULATION
+// Every read of dec goes through these two: 16 bytes of a problem's slab
+// into shared memory, asynchronously (slab + off and dst 16-byte aligned),
+// and one byte.  dec_copy_wait completes the thread's copies.
+__device__ __forceinline__ void dec_copy16(uint8_t* dst, const uint8_t* slab, long long off) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+                 :: "r"((unsigned)__cvta_generic_to_shared(dst)), "l"(slab + off) : "memory");
+}
+__device__ __forceinline__ uint8_t dec_byte(const uint8_t* slab, long long off) { return slab[off]; }
+__device__ __forceinline__ void dec_copy_wait() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
+#endif
+
+constexpr int pow2_at_least(int x) { return x <= 1 ? 1 : 2 * pow2_at_least((x + 1) / 2); }
+
+// The geometry of a traceback tile of R rows (see the note above).
+template <int R>
+struct TbGeom {
+    static constexpr int kDiags = 2 * R;
+    static constexpr int kChunks = (R + 15 + 15) / 16;     // 16-byte chunks a diagonal
+    static constexpr int kPitch = 16 * kChunks + 32;       // K = kPitch - W mod 16
+    static constexpr int kTileBytes = kDiags * kPitch + 16;
+    static constexpr int kRing = pow2_at_least(kDiags + 2);  // > a tile's steps
+    static constexpr int kWarpBytes = kTileBytes + kRing;
+    static constexpr int kMaxPerBlock = 232448 / kWarpBytes < 8 ? 232448 / kWarpBytes : 8;
+};
+
+// A tile in shared memory: the shared offset of its lowest row on its
+// anchor diagonal, and the diagonals it holds.
+struct TbTile {
+    int base, rows;
+};
+
+// The warp loads the tile anchored at (d0, i0) into buf and waits for it:
+// lane l takes chunk l % kChunks of diagonals l / kChunks, l / kChunks +
+// 32 / kChunks, ...  Slab offsets fit in 32 bits (at most (16384 + 1) x
+// 8193 bytes a problem).
+template <int R>
+__device__ __forceinline__ TbTile tb_load_tile(
+    uint8_t* buf, const uint8_t* slab, int n, int W, int K, int d0, int i0)
+{
+    using G = TbGeom<R>;
+    constexpr int kRowsAtOnce = 32 / G::kChunks;
+    TbTile tile;
+    // diagonals below 0 read byte 0 at every cell; a tile holds them only
+    // when it starts there
+    tile.rows = d0 >= 0 ? min(G::kDiags, d0 + 1) : G::kDiags;
+    const unsigned addr = (unsigned)(uintptr_t)slab;  // its low 4 bits set the skews
+    const int lin0 = d0 * W + i0 - (R - 1);  // the anchor diagonal's lowest row
+    tile.base = (int)((addr + lin0) & 15);
+    const int lane = threadIdx.x & 31;
+    const unsigned below = d0 < 0 ? dec_byte(slab, 0) * 0x01010101u : 0u;
+    if (lane < kRowsAtOnce * G::kChunks) {
+        const int ch = lane % G::kChunks;
+#pragma unroll 2
+        for (int r = lane / G::kChunks; r < tile.rows; r += kRowsAtOnce) {
+            const int lin = lin0 - r * W;
+            const int skew = (int)((addr + lin) & 15);
+            const int src = lin - skew + 16 * ch;
+            uint8_t* dst = buf + tile.base + r * K - skew + 16 * ch;
+            if (d0 < 0) {
+                *reinterpret_cast<uint4*>(dst) = make_uint4(below, below, below, below);
+            } else if (src >= 0 && src <= n - 16) {
+                dec_copy16(dst, slab, src);
+            } else {
+#pragma unroll
+                for (int e = 0; e < 16; ++e) dst[e] = dec_byte(slab, min(max(src + e, 0), n - 1));
+            }
+        }
+    }
+    dec_copy_wait();
+    __syncwarp();
+    return tile;
+}
+
+// The walk's state; r, q: the position's diagonal and row inside the tile
+// (r = d0 - d, q = i - ilo); at: its byte in shared memory; fsel: the H
+// source that the mode (F: up, E: left) or an edge (i = 0: left, j = 0:
+// up) forces, or 0 if none, in the low nibble of 0x4440; mask: 3 if none
+// is forced, else 0.
+struct TbWalk {
+    int i, j, mode, t, r, q;
+    const uint8_t* at;
+    unsigned fsel, mask;
+    __device__ __forceinline__ void force() {
+        const int edge = ((i == 0) << 1) | (j == 0);  // 3 only at the origin: not live
+        const int forced = mode ? mode : edge;
+        fsel = 0x4440u | (unsigned)forced;
+        mask = forced ? 0u : 3u;
+    }
+    __device__ __forceinline__ bool live(int L) const { return (i > 0 || j > 0) && t < L; }
+};
+
+// Byte (sel & 3) of table, zero-extended: prmt with selector nibbles 1-3
+// set to 4 (bytes of the zero operand).
+__device__ __forceinline__ unsigned tb_pick(unsigned table, unsigned sel) {
+#ifdef CUDA_CPU_EMULATION
+    return __byte_perm(table, 0, sel);
+#else
+    unsigned d;
+    asm("prmt.b32 %0, %1, %2, %3;" : "=r"(d) : "r"(table), "r"(0u), "r"(sel));
+    return d;
+#endif
+}
+
+// One step.  The H source c is the byte's low two bits unless forced; c = 3
+// is a source no forward kernel writes, which the plain version emits as
+// left, steps diagonally and leaves in E.  The chain from one step's byte
+// to the next step's load is short: sel = (byte & mask) | fsel, the
+// pointer's change picked by prmt from `deltas`, and one three-input add
+// (a diagonal step adds 2K - 1, up K - 1, left K: K - 1 plus the byte K, 0
+// or 1 of deltas).  The rest (ops, counters, the next fsel and mask) runs
+// beside it.
+template <int kRing>
+__device__ __forceinline__ void tb_step(TbWalk& w, uint8_t* ring, unsigned deltas, int k1,
+                                        bool lane0)
+{
+    const unsigned byte = *w.at;
+    const unsigned sel = (byte & w.mask) | w.fsel;
+    w.at += k1 + (int)tb_pick(deltas, sel);
+    const int c = (int)(sel & 3);
+    const int c2 = min(c, 2);
+    if (lane0) ring[w.t & (kRing - 1)] = (uint8_t)(c2 + 1);
+    const int di = (c != 2);
+    const int dj = (c != 1);
+    w.i -= di;
+    w.j -= dj;
+    w.r += di + dj;
+    w.q -= di;
+    ++w.t;
+    const unsigned opened = byte & (c == 1 ? 8u : 4u);
+    w.mode = (c == 0 || opened) ? 0 : c2;
+    w.force();
+}
+
+// Steps while the walk is live (not at the origin, fewer than L steps) and
+// inside the tile (r < rows, q >= 0); every lane runs the same steps.
+// Four at a time, with no test between them, while none of the four can
+// end the walk or leave the tile (a step lowers i + j by at most 2, raises
+// r by at most 2 and lowers q by at most 1).
+template <int kRing>
+__device__ __forceinline__ void tb_walk(TbWalk& w, uint8_t* ring, int L, unsigned deltas, int k1,
+                                        int rows)
+{
+    const bool lane0 = (threadIdx.x & 31) == 0;
+    while (w.i + w.j > 8 && w.t <= L - 4 && w.r <= rows - 8 && w.q >= 4) {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) tb_step<kRing>(w, ring, deltas, k1, lane0);
+    }
+    while (w.live(L) && w.r < rows && w.q >= 0) tb_step<kRing>(w, ring, deltas, k1, lane0);
+}
+
+template <int R>
+__global__ void __launch_bounds__(256) gotoh_traceback_kernel(
     const uint8_t* __restrict__ dec,     // [B, M+N+1, M+1]
     const int32_t* __restrict__ lens_a,  // [B]
     const int32_t* __restrict__ lens_b,  // [B]
@@ -465,34 +657,65 @@ __global__ void gotoh_traceback_kernel(
     uint8_t* __restrict__ ops,           // [B, M+N]
     int32_t* __restrict__ counts)        // [B]
 {
-    const int b = blockIdx.x * blockDim.x + threadIdx.x;
+    using G = TbGeom<R>;
+    extern __shared__ __align__(16) unsigned char smem[];
+    const int warp = threadIdx.x >> 5;
+    const int lane = threadIdx.x & 31;
+    const int b = blockIdx.x * (blockDim.x >> 5) + warp;
     if (b >= B) return;
     const int W = M + 1;
     const int L = M + N;
-    const long long n_cells = (long long)(M + N + 1) * W;
-    const uint8_t* db = dec + (size_t)b * (size_t)n_cells;
-    uint8_t* ob = ops + (size_t)b * L;
-    int i = lens_a[b], j = lens_b[b], mode = 0, t = 0;
-    while ((i > 0 || j > 0) && t < L) {
-        long long idx = (long long)(i + j) * W + i;
-        idx = idx < 0 ? 0 : (idx >= n_cells ? n_cells - 1 : idx);
-        const int byte = db[idx];
-        int c = mode;
-        if (c == 0) c = (i == 0) ? 2 : ((j == 0) ? 1 : (byte & 3));
-        ob[t++] = (uint8_t)(c + 1);
-        if (c == 0) {
-            --i; --j;
-            mode = 0;
-        } else if (c == 1) {
-            --i;
-            mode = ((byte >> 3) & 1) ? 0 : 1;
-        } else {
-            --j;
-            mode = ((byte >> 2) & 1) ? 0 : 2;
-        }
+    const int K = G::kPitch - (W & 15);
+    const unsigned deltas = (unsigned)K | 1u << 16 | (unsigned)K << 24;  // c = 0, 1, 2, 3
+    const int n = (M + N + 1) * W;
+    const uint8_t* slab = dec + (size_t)b * (size_t)n;
+    uint8_t* ob = ops + (size_t)b * (size_t)L;
+    // the tile and the ring, made from smem by arithmetic only so that the
+    // walk's loads compile as shared-memory loads
+    uint8_t* const buf = smem + (size_t)warp * G::kWarpBytes;
+    uint8_t* const ring = buf + G::kTileBytes;
+    TbWalk w{lens_a[b], lens_b[b], 0, 0, 0, 0, nullptr, 0, 0};
+    w.force();
+    int flushed = 0;
+    while (w.live(L)) {
+        const TbTile tile = tb_load_tile<R>(buf, slab, n, W, K, w.i + w.j, w.i);
+        w.r = 0;
+        w.q = R - 1;
+        w.at = buf + tile.base + (R - 1);
+        tb_walk<G::kRing>(w, ring, L, deltas, K - 1, tile.rows);
+        __syncwarp();  // the ring; and every lane is done with the tile
+        for (int x = flushed + lane; x < w.t; x += 32) ob[x] = ring[x & (G::kRing - 1)];
+        flushed = w.t;
     }
-    counts[b] = t;
-    for (; t < L; ++t) ob[t] = 0;
+    if (lane == 0) counts[b] = w.t;
+    // OP_NONE after the walk: bytes up to a 16-byte boundary, 16 bytes a
+    // lane, then the bytes after the last whole 16
+    const int t = w.t;
+    const int head = min(L - t, (int)((16 - ((uintptr_t)(ob + t) & 15)) & 15));
+    if (lane < head) ob[t + lane] = 0;
+    const int body = t + head;
+    const int body_end = body + ((L - body) & ~15);
+    for (int x = body + 16 * lane; x < body_end; x += 16 * 32)
+        *reinterpret_cast<uint4*>(ob + x) = make_uint4(0, 0, 0, 0);
+    if (body_end + lane < L) ob[body_end + lane] = 0;
+}
+
+template <int R>
+int tb_launch(const void* dec, const void* lens_a, const void* lens_b, int B, int M, int N,
+              int per_block, void* ops, void* counts, cudaStream_t stream)
+{
+    using G = TbGeom<R>;
+    if (per_block <= 0) per_block = 1;
+    if (per_block > G::kMaxPerBlock) per_block = G::kMaxPerBlock;
+    const int smem = per_block * G::kWarpBytes;
+    cudaError_t err = cudaFuncSetAttribute(
+        gotoh_traceback_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    const int blocks = (B + per_block - 1) / per_block;
+    gotoh_traceback_kernel<R><<<blocks, 32 * per_block, smem, stream>>>(
+        (const uint8_t*)dec, (const int32_t*)lens_a, (const int32_t*)lens_b, B, M, N,
+        (uint8_t*)ops, (int32_t*)counts);
+    return (int)cudaGetLastError();
 }
 
 // Block shape of a forward launch: warps per problem (the caller's, or by
@@ -557,16 +780,17 @@ int gotoh_forward_profiles_launch(
     return (int)cudaGetLastError();
 }
 
+// per_block: problems (warps) a block, 0 for the default of 1 (1, 2 and 4
+// timed alike on config 3's launch list, 8 slower), at most 8 and what
+// shared memory allows.
 int gotoh_traceback_launch(
     const void* dec, const void* lens_a, const void* lens_b, int B, int M, int N,
-    void* ops, void* counts, void* stream)
+    int per_block, void* ops, void* counts, void* stream)
 {
-    const int threads = 128;
-    const int blocks = (B + threads - 1) / threads;
-    gotoh_traceback_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-        (const uint8_t*)dec, (const int32_t*)lens_a, (const int32_t*)lens_b, B, M, N,
-        (uint8_t*)ops, (int32_t*)counts);
-    return (int)cudaGetLastError();
+    cudaStream_t s = (cudaStream_t)stream;
+    if (M < 17) return tb_launch<17>(dec, lens_a, lens_b, B, M, N, per_block, ops, counts, s);
+    if (M < 33) return tb_launch<33>(dec, lens_a, lens_b, B, M, N, per_block, ops, counts, s);
+    return tb_launch<65>(dec, lens_a, lens_b, B, M, N, per_block, ops, counts, s);
 }
 
 const char* gotoh_error_string(int err) {

@@ -79,7 +79,7 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.gotoh_forward_codes_launch.restype = I
     lib.gotoh_forward_profiles_launch.argtypes = [P, P, P, P, P, F, F, I, I, I, I, I, P, P, P]
     lib.gotoh_forward_profiles_launch.restype = I
-    lib.gotoh_traceback_launch.argtypes = [P, P, P, I, I, I, P, P, P]
+    lib.gotoh_traceback_launch.argtypes = [P, P, P, I, I, I, I, P, P, P]
     lib.gotoh_traceback_launch.restype = I
     lib.gotoh_error_string.argtypes = [I]
     lib.gotoh_error_string.restype = ctypes.c_char_p

@@ -290,16 +290,23 @@ def gotoh_traceback_ref(
     j = lens_b.long()
     mode = torch.zeros(B, dtype=torch.int64, device=dev)
     ops = torch.zeros((B, L), dtype=torch.uint8, device=dev)
-    steps = int((i + j).max()) if B else 0
-    for t in range(steps):
+    # a walk on a forward pass's decisions ends within la + lb steps; one
+    # that garbage bytes lead past the origin goes on, as the JAX scan's
+    # does, for at most L steps in all
+    settled = int((i + j).max()) if B else 0
+    for t in range(L):
         active = (i > 0) | (j > 0)
+        if t >= settled and not bool(active.any()):
+            break
         idx = ((i + j) * W + i).clamp(0, n_diags * W - 1)
         byte = dec_flat.gather(1, idx[:, None])[:, 0].long()
         from_h = torch.where(i == 0, 2, torch.where(j == 0, 1, byte & 3))
+        # c is 0 diag, 1 up, 2 left, or 3 (a source no forward pass writes),
+        # which the JAX scan emits as left, steps as diag and leaves in E
         c = torch.where(mode == 0, from_h, mode)
-        ops[:, t] = torch.where(active, c + 1, OP_NONE).to(torch.uint8)
+        ops[:, t] = torch.where(active, c.clamp(max=2) + 1, OP_NONE).to(torch.uint8)
         opened = torch.where(c == 1, (byte >> 3) & 1, (byte >> 2) & 1)
-        nmode = torch.where((c == 0) | (opened == 1), 0, c)
+        nmode = torch.where((c == 0) | (opened == 1), 0, c.clamp(max=2))
         i = torch.where(active & (c != 2), i - 1, i)
         j = torch.where(active & (c != 1), j - 1, j)
         mode = torch.where(active, nmode, mode)

@@ -208,7 +208,7 @@ def gotoh_traceback(
 
     lib = _build.library()
     err = lib.gotoh_traceback_launch(
-        _ptr(dec), _ptr(lens_a), _ptr(lens_b), B, M, N, _ptr(ops), _ptr(counts),
+        _ptr(dec), _ptr(lens_a), _ptr(lens_b), B, M, N, 0, _ptr(ops), _ptr(counts),
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
     )
     _raise_on_error(lib, err, "gotoh_traceback")

@@ -4,10 +4,15 @@ Builds config 3 (9 x 250 kbp, scripts/bench_configs.py) or the 9 x 1 Mbp
 enterobacteria-like genomes of the tree-progressive branch, runs
 ProgressiveMauve on cuda:0 once to warm up (kernel build, allocator), then
 once under torch.profiler (CUDA activity).  Prints the per-phase host
-report, the kernels by device time and the device busy and idle shares of
-the profiled run, with the card's name and power limit.
+report, the kernels by device time, one line per Gotoh kernel (launches and
+device ms) and the device busy and idle shares of the profiled run, with
+the card's name and power limit.
 
-Usage:  python scripts/profile_port_progressive.py [3|tree] [--trace PATH]
+Usage:  python scripts/profile_port_progressive.py [3|tree] [--trace PATH] [--root DIR]
+
+`--root DIR` imports the port's package from DIR (another checkout, for
+example the parent commit unpacked into a git-ignored directory), so two
+versions run the same configuration in turns, one process each.
 """
 
 import argparse
@@ -16,18 +21,18 @@ import subprocess
 import sys
 import time
 
-sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+import numpy as np
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
 
-import numpy as np  # noqa: E402
-import torch  # noqa: E402
-from torch.autograd import DeviceType  # noqa: E402
-from torch.profiler import ProfilerActivity, profile  # noqa: E402
-
-from mauvealigner_tpu_torch.models.progressive import ProgressiveMauve, ProgressiveOptions  # noqa: E402
-from mauvealigner_tpu_torch.utils import simulate, timing  # noqa: E402
+GOTOH_KERNELS = ("gotoh_forward_codes_kernel", "gotoh_forward_profiles_kernel",
+                 "gotoh_traceback_kernel")
 
 
 def genomes_of(config: str):
+    from mauvealigner_tpu_torch.utils import simulate
+
     if config == "tree":
         return simulate.enterobacteria_like(1_000_000, 9, 0.08)[0]
     rng = np.random.default_rng(37)
@@ -42,7 +47,12 @@ def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("config", nargs="?", default="3", choices=["3", "tree"])
     p.add_argument("--trace", default="")
+    p.add_argument("--root", default=os.path.join(os.path.dirname(__file__), ".."))
     a = p.parse_args()
+    sys.path.insert(0, os.path.abspath(a.root))
+    from mauvealigner_tpu_torch.models.progressive import ProgressiveMauve, ProgressiveOptions
+    from mauvealigner_tpu_torch.utils import timing
+
     if not torch.cuda.is_available():
         print("profile_port_progressive: torch sees no CUDA device", file=sys.stderr)
         return 1
@@ -64,6 +74,11 @@ def main() -> int:
     print(timing.GLOBAL.report().rstrip())
     events = prof.key_averages()
     print(events.table(sort_by="self_device_time_total", row_limit=30))
+    label = os.path.basename(os.path.abspath(a.root))
+    for name in GOTOH_KERNELS:
+        rows = [e for e in events if name in e.key and e.device_type == DeviceType.CUDA]
+        print(f"[{label}] config {a.config} {name}: {sum(e.count for e in rows)} launches, "
+              f"{sum(e.self_device_time_total for e in rows) / 1e3:.3f} ms ({card})")
     busy_us = sum(
         e.self_device_time_total for e in events
         if e.device_type == DeviceType.CUDA and not e.is_user_annotation

@@ -1,17 +1,26 @@
 // A CPU stand-in for the few CUDA features csrc/gotoh.cu uses, so that its
-// forward kernels' schedule (strips, phases, shuffles, shared buffers) can
+// kernels' schedules (the forward kernels' strips, phases, shuffles and
+// shared buffers; the traceback's tiles and op ring) can
 // run under g++ in tests/test_torch_gotoh_emulated.py.  One std::thread per
 // CUDA thread, blocks one after another; std::barrier implements
 // __syncthreads, __syncwarp and both halves of __shfl_up_sync (every lane
 // writes, all wait, every lane reads, all wait).  Shared memory is one
 // buffer per block.  Arithmetic is plain IEEE f32 (build with
-// -ffp-contract=off).  It checks logic, not speed or the GPU's compiler.
+// -ffp-contract=off).  The traceback's reads of dec (dec_copy16, dec_byte)
+// are plain copies that record, per slab, the lowest and highest byte
+// offset read (emu_dec_read_range).  It checks logic, not speed or the
+// GPU's compiler.
 #pragma once
 #include <algorithm>
 #include <barrier>
 #include <cmath>
 #include <cstddef>
+#include <cstdint>
+#include <cstdlib>
+#include <cstring>
+#include <map>
 #include <memory>
+#include <mutex>
 #include <thread>
 #include <vector>
 
@@ -21,6 +30,7 @@
 #define __forceinline__ inline
 #define __launch_bounds__(...)
 #define __restrict__
+#define CUDA_CPU_EMULATION
 
 struct EmuDim { unsigned x, y, z; };
 inline thread_local EmuDim threadIdx, blockIdx, blockDim;
@@ -61,6 +71,55 @@ inline float __shfl_up_sync(unsigned, float v, int delta) {
     w.bar.arrive_and_wait();
     const float r = lane >= delta ? w.val[lane - delta] : v;
     w.bar.arrive_and_wait();
+    return r;
+}
+
+struct uint4 { unsigned x, y, z, w; };
+inline uint4 make_uint4(unsigned x, unsigned y, unsigned z, unsigned w) { return {x, y, z, w}; }
+
+// Reads of a problem's decision slab, by slab address: [lowest, highest]
+// byte offset.
+inline std::mutex emu_reads_mutex;
+inline std::map<const void*, std::pair<long long, long long>> emu_reads;
+
+inline void emu_record_read(const uint8_t* slab, long long lo, long long hi) {
+    std::lock_guard<std::mutex> g(emu_reads_mutex);
+    auto it = emu_reads.find(slab);
+    if (it == emu_reads.end()) emu_reads[slab] = {lo, hi};
+    else it->second = {std::min(it->second.first, lo), std::max(it->second.second, hi)};
+}
+
+inline void dec_copy16(uint8_t* dst, const uint8_t* slab, long long off) {
+    // cp.async of 16 bytes faults unless both addresses are 16-byte aligned
+    if (((uintptr_t)dst | (uintptr_t)(slab + off)) & 15) std::abort();
+    emu_record_read(slab, off, off + 15);
+    std::memcpy(dst, slab + off, 16);
+}
+inline uint8_t dec_byte(const uint8_t* slab, long long off) {
+    emu_record_read(slab, off, off);
+    return slab[off];
+}
+inline void dec_copy_wait() {}
+
+extern "C" void emu_dec_reads_clear() {
+    std::lock_guard<std::mutex> g(emu_reads_mutex);
+    emu_reads.clear();
+}
+// 1 and the range read from `slab`, or 0 if nothing was read there.
+extern "C" int emu_dec_read_range(const void* slab, long long* lo, long long* hi) {
+    std::lock_guard<std::mutex> g(emu_reads_mutex);
+    auto it = emu_reads.find(slab);
+    if (it == emu_reads.end()) return 0;
+    *lo = it->second.first;
+    *hi = it->second.second;
+    return 1;
+}
+
+// byte n of the result is byte (s >> 4n) & 7 of the pair {y, x} (x low)
+inline unsigned __byte_perm(unsigned x, unsigned y, unsigned s) {
+    const unsigned long long v = (unsigned long long)y << 32 | x;
+    unsigned r = 0;
+    for (int k = 0; k < 4; ++k) r |= (unsigned)((v >> (8 * ((s >> (4 * k)) & 7))) & 0xff) << (8 * k);
     return r;
 }
 

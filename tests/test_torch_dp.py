@@ -247,3 +247,19 @@ def test_batch_calls_record_launch_shapes(rng):
     assert set(gotoh_cuda.LAUNCHES.values()) == {0}
     gotoh_cuda.reset_launches()
     assert gotoh_cuda.LAUNCH_SHAPES == []
+
+
+@pytest.mark.parametrize("M,N", [(20, 13), (9, 30), (0, 6)])
+def test_traceback_matches_jax_on_random_bytes(rng, M, N):
+    """On wholly random decision bytes (H source 3, walks led past the
+    origin through clamped indices until L = M+N steps) the plain traceback
+    still equals the JAX scan: the semantics the CUDA kernel is held to."""
+    B = 12
+    dec = rng.integers(0, 256, size=(B, M + N + 1, M + 1), dtype=np.uint8)
+    la = rng.integers(0, M + 1, size=B).astype(np.int32)
+    lb = rng.integers(0, N + 1, size=B).astype(np.int32)
+    la[0], lb[0] = M, N
+    ops_j, cnt_j = jax_dp.gotoh_traceback(jnp.asarray(dec), jnp.asarray(la), jnp.asarray(lb), M, N)
+    ops, cnt = dp.gotoh_traceback_ref(torch.from_numpy(dec), torch.from_numpy(la), torch.from_numpy(lb))
+    assert np.array_equal(np.asarray(ops_j), ops.numpy())
+    assert np.array_equal(np.asarray(cnt_j), cnt.numpy())

@@ -1,14 +1,18 @@
-"""The CUDA forward kernels' own source (csrc/gotoh.cu), run on the CPU.
+"""The CUDA kernels' own source (csrc/gotoh.cu), run on the CPU.
 
-The kernels cannot run here, but their schedule can: g++ compiles
+The kernels cannot run here, but their schedules can: g++ compiles
 csrc/gotoh.cu against tests/cuda_cpu_emulation.h, which stands in for the
 few CUDA features the file uses (one thread per CUDA thread, barriers for
-__syncthreads, __syncwarp and __shfl_up_sync).  Each launch is held to the
-plain-torch version on the same inputs: scores exact, every byte of each
-problem's live rectangle (dp.live_cell_mask) identical, and every byte
-outside it left as it was.  This checks the strip / phase / buffer logic of
-every block shape, not the GPU's compiler or speed (test_torch_gpu.py and
-chip_smoke.py do that on the card).
+__syncthreads, __syncwarp and __shfl_up_sync, plain copies for the
+traceback's reads of dec).  Each forward launch is held to the plain-torch
+version on the same inputs: scores exact, every byte of each problem's live
+rectangle (dp.live_cell_mask) identical, and every byte outside it left as
+it was.  Each traceback launch is held to dp.gotoh_traceback_ref on ops and
+counts, on the emulated forward kernels' decisions with every dead byte
+poisoned and on wholly random bytes, and every byte it reads lies inside
+its own problem's slab.  This checks the strip / phase / buffer logic of
+every block shape and the traceback's tiles, not the GPU's compiler or
+speed (test_torch_gpu.py and chip_smoke.py do that on the card).
 """
 
 import ctypes
@@ -40,7 +44,7 @@ def emulated(tmp_path_factory):
     src = src.replace("extern __shared__ __align__(16) unsigned char smem[];",
                       "unsigned char* smem = emu_dynamic_smem();")
     src = src.replace("__shared__ float sub6[36];", "float* sub6 = (float*)emu_static_smem();")
-    src, n = re.subn(r"(\w+)<<<([^,]+), ([^,]+), ([^,]+), ([^>]+)>>>\(",
+    src, n = re.subn(r"([\w<>]+?)<<<([^,]+), ([^,]+), ([^,]+), ([^>]+)>>>\(",
                      r"EmuLaunch(\2, \3, \4).run(\1, ", src)
     assert n == 3 and "__shared__" not in src
     out = tmp_path_factory.mktemp("gotoh_emulated")
@@ -54,6 +58,10 @@ def emulated(tmp_path_factory):
     )
     lib = ctypes.CDLL(str(so))
     _build._bind(lib)
+    ll = ctypes.POINTER(ctypes.c_longlong)
+    lib.emu_dec_read_range.argtypes = [ctypes.c_void_p, ll, ll]
+    lib.emu_dec_read_range.restype = ctypes.c_int
+    lib.emu_dec_reads_clear.argtypes = []
     return lib
 
 
@@ -134,3 +142,110 @@ def test_emulated_kernel_matches_plain(emulated, kind, M, N, warps, normalize, g
     assert np.array_equal(scores, s_p.numpy())
     assert np.array_equal(dec[live], d_p.numpy()[live])
     assert (dec[~live] == UNTOUCHED).all()
+
+
+def _emulated_forward(lib, kind, M, N, gaps, normalize, fill, rng, B):
+    """Decisions of the emulated forward kernel on fresh inputs, every byte
+    outside the live rectangles set by `fill` first (the kernel leaves them
+    as they are); returns (dec, dec of the plain version, la, lb)."""
+    go, ge = gaps
+    ca, cb, la, lb = _inputs(rng, B, M, N)
+    sub = dp.HOXD70.copy()
+    go_ge, ge_s = dp.gap_scalars(go, ge)
+    scores = np.zeros(B, np.float32)
+    dec = fill((B, M + N + 1, M + 1))
+    lens = (torch.from_numpy(la), torch.from_numpy(lb))
+    if kind == "codes":
+        err = lib.gotoh_forward_codes_launch(
+            _ptr(ca), _ptr(cb), _ptr(la), _ptr(lb), _ptr(sub), go_ge, ge_s, B, M, N, 0,
+            _ptr(scores), _ptr(dec), None)
+        _, d_p = dp.gotoh_forward_codes_ref(
+            torch.from_numpy(ca), torch.from_numpy(cb), *lens, torch.from_numpy(sub), go, ge)
+    else:
+        pa, pb = _counts(rng, ca, la), _counts(rng, cb, lb)
+        err = lib.gotoh_forward_profiles_launch(
+            _ptr(pa), _ptr(pb), _ptr(la), _ptr(lb), _ptr(sub), go_ge, ge_s, B, M, N,
+            int(normalize), 0, _ptr(scores), _ptr(dec), None)
+        _, d_p = dp.gotoh_forward_profiles_ref(
+            torch.from_numpy(pa), torch.from_numpy(pb), *lens, torch.from_numpy(sub), go, ge,
+            normalize)
+    assert err == 0
+    return dec, d_p, la, lb
+
+
+def _emulated_traceback(lib, dec, la, lb, per_block):
+    """The emulated traceback kernel's (ops, counts); asserts that every
+    byte it read lies inside the slab of the problem it walked."""
+    B, n_diags, W = dec.shape
+    M, N = W - 1, n_diags - W
+    ops = np.full((B, M + N), 0x77, np.uint8)
+    counts = np.full(B, -1, np.int32)
+    lib.emu_dec_reads_clear()
+    err = lib.gotoh_traceback_launch(
+        _ptr(dec), _ptr(la), _ptr(lb), B, M, N, per_block, _ptr(ops), _ptr(counts), None)
+    assert err == 0
+    n = n_diags * W
+    lo, hi = ctypes.c_longlong(), ctypes.c_longlong()
+    for b in range(B):
+        slab = ctypes.c_void_p(dec.ctypes.data + b * n)
+        if lib.emu_dec_read_range(slab, ctypes.byref(lo), ctypes.byref(hi)):
+            assert 0 <= lo.value <= hi.value < n, (b, lo.value, hi.value, n)
+        else:
+            assert la[b] == 0 and lb[b] == 0, b  # only an empty walk reads nothing
+    return ops, counts
+
+
+def _poison(value):
+    def fill(shape):
+        if value == "random":
+            return np.random.default_rng(sum(shape)).integers(0, 256, size=shape, dtype=np.uint8)
+        return np.full(shape, value, np.uint8)
+    return fill
+
+
+@pytest.mark.parametrize(
+    "kind,M,N,gaps,normalize,poison,B,per_block",
+    [
+        ("codes", 16, 16, (dp.DEFAULT_GAP_OPEN, dp.DEFAULT_GAP_EXTEND), False, UNTOUCHED, 6, 0),
+        ("codes", 33, 20, (-10.0, -1.0), False, "random", 10, 4),
+        ("codes", 70, 130, (-0.3, -0.7), False, UNTOUCHED, 7, 3),
+        ("codes", 130, 70, (0.0, 0.0), False, "random", 9, 7),
+        ("profiles", 40, 40, (dp.DEFAULT_GAP_OPEN, dp.DEFAULT_GAP_EXTEND), True, UNTOUCHED, 6, 2),
+        ("profiles", 100, 100, (-1000.0, -100.0), False, "random", 8, 0),
+        # walks over several tiles of 65 rows and 130 diagonals
+        ("codes", 300, 260, (dp.DEFAULT_GAP_OPEN, dp.DEFAULT_GAP_EXTEND), False, "random", 7, 3),
+        ("codes", 180, 420, (-10.0, -1.0), False, UNTOUCHED, 5, 0),
+    ],
+)
+def test_emulated_traceback_matches_plain(emulated, kind, M, N, gaps, normalize, poison, B,
+                                          per_block):
+    """The traceback of the emulated forward kernel's decisions, every dead
+    byte poisoned, equals the plain traceback of the plain decisions."""
+    rng = np.random.default_rng(M * 7 + N + B)
+    dec, d_p, la, lb = _emulated_forward(emulated, kind, M, N, gaps, normalize,
+                                         _poison(poison), rng, B)
+    ops, counts = _emulated_traceback(emulated, dec, la, lb, per_block)
+    o_p, c_p = dp.gotoh_traceback_ref(d_p, torch.from_numpy(la), torch.from_numpy(lb))
+    assert np.array_equal(counts, c_p.numpy())
+    assert np.array_equal(ops, o_p.numpy())
+    assert (counts[1] == 0) and not ops[1].any()  # (0, 0): no step, all OP_NONE
+
+
+@pytest.mark.parametrize(
+    "M,N,B,per_block",
+    [(40, 25, 9, 0), (25, 40, 9, 5), (0, 7, 3, 0), (9, 0, 3, 2), (150, 150, 4, 1)],
+)
+def test_emulated_traceback_on_random_bytes(emulated, M, N, B, per_block):
+    """Wholly random decision bytes lead walks out of the rectangle, through
+    clamped indices, until L = M+N steps: the kernel still equals the plain
+    version and reads nothing outside each problem's slab."""
+    rng = np.random.default_rng(M * 31 + N)
+    dec = rng.integers(0, 256, size=(B, M + N + 1, M + 1), dtype=np.uint8)
+    la = rng.integers(0, M + 1, size=B).astype(np.int32)
+    lb = rng.integers(0, N + 1, size=B).astype(np.int32)
+    la[0], lb[0] = M, N
+    ops, counts = _emulated_traceback(emulated, dec, la, lb, per_block)
+    o_p, c_p = dp.gotoh_traceback_ref(
+        torch.from_numpy(dec), torch.from_numpy(la), torch.from_numpy(lb))
+    assert np.array_equal(counts, c_p.numpy())
+    assert np.array_equal(ops, o_p.numpy())

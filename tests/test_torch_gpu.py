@@ -40,12 +40,13 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
-def _batch(rng, B, side, dev):
+def _batch(rng, B, side, dev, side_b=None):
+    side_b = side if side_b is None else side_b
     la = rng.integers(1, side + 1, size=B).astype(np.int32)
-    lb = rng.integers(1, side + 1, size=B).astype(np.int32)
-    la[:4], lb[:4] = (1, 0, 5, side), (1, 7, 0, side)
+    lb = rng.integers(1, side_b + 1, size=B).astype(np.int32)
+    la[:4], lb[:4] = (1, 0, min(5, side), side), (1, min(7, side_b), 0, side_b)
     ca = np.full((B, side), 255, np.uint8)
-    cb = np.full((B, side), 255, np.uint8)
+    cb = np.full((B, side_b), 255, np.uint8)
     for k in range(B):
         a = rng.integers(0, 4, size=la[k])
         b = np.resize(a, lb[k]) if (k % 2 and la[k]) else rng.integers(0, 4, size=lb[k])
@@ -152,13 +153,13 @@ def test_aligner_gpu_matches_cpu(rng, cuda_device):
     assert gpu["gotoh_forward_codes"] > 0 and gpu["gotoh_traceback"] > 0
 
 
-def _profiles(rng, B, side, dev):
+def _profiles(rng, B, side, dev, side_b=None):
     """uint8 count profiles of 1-9 member rows, zero rows past each length,
     widened to f32 on the card."""
-    ca, cb, la, lb = (x.cpu().numpy() for x in _batch(rng, B, side, "cpu"))
+    ca, cb, la, lb = (x.cpu().numpy() for x in _batch(rng, B, side, "cpu", side_b))
     out = []
     for codes, lens in ((ca, la), (cb, lb)):
-        prof = np.zeros((B, side, 5), np.uint8)
+        prof = np.zeros((B, codes.shape[1], 5), np.uint8)
         for k in range(B):
             n = int(lens[k])
             for _ in range(int(rng.integers(1, 10))):
@@ -218,3 +219,74 @@ def test_progressive_gpu_matches_cpu(rng, cuda_device):
     assert np.array_equal(out["cpu"][1], out[str(cuda_device)][1])
     assert set(out["cpu"][2].values()) == {0}
     assert min(out[str(cuda_device)][2].values()) > 0
+
+
+POISON = 0xEE
+
+
+def _poisoned_decisions(rng, kind, B, M, N, dev):
+    """Decisions of one forward kernel with every byte outside the live
+    rectangles set to POISON; returns (dec, lens_a, lens_b)."""
+    sub = torch.from_numpy(dp.HOXD70.copy()).to(dev)
+    if kind == "codes":
+        x = _batch(rng, B, M, dev, N)
+        _, dec = gotoh_cuda.gotoh_forward_codes(*x, sub, GO, GE)
+    else:
+        x = _profiles(rng, B, M, dev, N)
+        _, dec = gotoh_cuda.gotoh_forward_profiles(*x, sub, GO, GE, True)
+    dec[~dp.live_cell_mask(x[2], x[3], M, N)] = POISON
+    return dec, x[2], x[3]
+
+
+@pytest.mark.parametrize("side", [16, 32, 64, 128, 256, 512, 1024, 2048, 4096])
+def test_traceback_on_poisoned_decisions(rng, cuda_device, side):
+    """The traceback kernel on both forward kernels' decisions, dead bytes
+    poisoned, square and non-square: ops and counts equal the plain
+    version's, one launch counted each."""
+    B = 48 if side <= 512 else (12 if side <= 1024 else 4)
+    for M, N in ((side, side), (side, side // 2 + 3), (side // 4 + 1, side)):
+        for kind in ("codes", "profiles"):
+            dec, la, lb = _poisoned_decisions(rng, kind, B, M, N, cuda_device)
+            before = gotoh_cuda.LAUNCHES["gotoh_traceback"]
+            o_k, c_k = gotoh_cuda.gotoh_traceback(dec, la, lb)
+            o_p, c_p = dp.gotoh_traceback_ref(dec, la, lb)
+            torch.cuda.synchronize()
+            assert torch.equal(o_k, o_p) and torch.equal(c_k, c_p), (kind, M, N)
+            assert gotoh_cuda.LAUNCHES["gotoh_traceback"] == before + 1
+
+
+@pytest.mark.parametrize("per_block", range(8))
+def test_traceback_every_block_shape(rng, cuda_device, per_block):
+    """Each number of problems a block (0: the launcher's default) through
+    the library, with B not a multiple of it."""
+    import ctypes
+
+    from mauvealigner_tpu_torch.ops import _build
+
+    M, N, B = 300, 170, 23
+    dec, la, lb = _poisoned_decisions(rng, "codes", B, M, N, cuda_device)
+    ops = torch.empty((B, M + N), dtype=torch.uint8, device=cuda_device)
+    counts = torch.empty(B, dtype=torch.int32, device=cuda_device)
+    p = gotoh_cuda._ptr
+    stream = ctypes.c_void_p(torch.cuda.current_stream(cuda_device).cuda_stream)
+    err = _build.library().gotoh_traceback_launch(
+        p(dec), p(la), p(lb), B, M, N, per_block, p(ops), p(counts), stream)
+    assert err == 0
+    o_p, c_p = dp.gotoh_traceback_ref(dec, la, lb)
+    torch.cuda.synchronize()
+    assert torch.equal(ops, o_p) and torch.equal(counts, c_p)
+
+
+@pytest.mark.parametrize("M,N", [(40, 25), (700, 300)])
+def test_traceback_on_random_bytes(rng, cuda_device, M, N):
+    """Wholly random decision bytes: walks pass the origin and read
+    clamped indices at both ends of each slab until L = M+N steps."""
+    B = 40
+    dec = torch.from_numpy(rng.integers(0, 256, size=(B, M + N + 1, M + 1), dtype=np.uint8))
+    la = torch.from_numpy(rng.integers(0, M + 1, size=B).astype(np.int32))
+    lb = torch.from_numpy(rng.integers(0, N + 1, size=B).astype(np.int32))
+    la[0], lb[0] = M, N
+    o_p, c_p = dp.gotoh_traceback_ref(dec, la, lb)
+    o_k, c_k = gotoh_cuda.gotoh_traceback(*(t.to(cuda_device) for t in (dec, la, lb)))
+    torch.cuda.synchronize()
+    assert torch.equal(o_k.cpu(), o_p) and torch.equal(c_k.cpu(), c_p)
