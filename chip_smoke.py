@@ -2,10 +2,13 @@
 against its plain-torch version on the card, and drives the port's paths on
 the GPU: config 1 (two 1 Mbp genomes, bench.py) through MauveAligner,
 BASELINE config 3 (9 x 250 kbp, scripts/bench_configs.py) through
-ProgressiveMauve (the extant branch of its gate), and 9 x 1 Mbp
+ProgressiveMauve (the extant branch of its gate), 9 x 1 Mbp
 enterobacteria-like genomes through ProgressiveMauve (the tree-progressive
-branch).  Each run is held to the JAX package's outputs recorded in
-mauvealigner_tpu_torch/data/*_golden.json.
+branch), BASELINE config 4 (the 236 kbp planted-family genome,
+scripts/bench_configs.py config4) through Repeatoire cold and warm, and the
+same generator with every spacer 4x as long (926 kbp, bacterial scale)
+through Repeatoire once.  Each run is held to the JAX package's outputs
+recorded in mauvealigner_tpu_torch/data/*_golden.json.
 
 Usage (from the repository root, one NVIDIA GPU):  python3 chip_smoke.py
 
@@ -14,10 +17,11 @@ problem's live rectangle (dp.live_cell_mask), the only bytes the forward
 kernels write; the traceback kernel is held to the plain traceback on the
 plain decisions and on each forward kernel's decisions with every byte
 outside the live rectangles poisoned (POISON).  After the driven paths,
-config 3's cold-run launch list (gotoh_cuda.LAUNCH_SHAPES) is replayed with
-random contents at the recorded lengths (scripts/gotoh_replay.py): each
-kernel's summed ms, bound and roofline share print on the "main path"
-lines, and the traceback's chain floor beside its bound.
+config 3's and config 4's cold-run launch lists (gotoh_cuda.LAUNCH_SHAPES)
+are replayed with random contents at the recorded lengths
+(scripts/gotoh_replay.py): each kernel's summed ms, bound and roofline share
+print on the "main path" lines, and the traceback's chain floor beside its
+bound.
 
 Phases print on their own lines; any failure exits non-zero before the
 result line.  The second-to-last line is one JSON object describing each
@@ -36,6 +40,8 @@ import numpy as np
 import torch
 
 from mauvealigner_tpu_torch import native
+from mauvealigner_tpu_torch.core.mln import write_match_list
+from mauvealigner_tpu_torch.models import repeatoire
 from mauvealigner_tpu_torch.models.aligner import AlignerOptions, MauveAligner
 from mauvealigner_tpu_torch.models.progressive import ProgressiveMauve, ProgressiveOptions
 from mauvealigner_tpu_torch.ops import _build, dp, gotoh_cuda
@@ -190,13 +196,13 @@ def check_kernels(dev) -> dict:
     return stats
 
 
-def mainpath_times(dev, shapes) -> dict:
-    """Replay a progressive run's recorded launches (random contents at the
-    recorded lengths, scripts/gotoh_replay.py): per kernel the summed ms,
-    summed bound and roofline share.  These launches count in no run's
-    LAUNCHES: the counts are reset before every driven path."""
+def mainpath_times(dev, shapes, config: str) -> dict:
+    """Replay a run's recorded launches (random contents at the recorded
+    lengths, scripts/gotoh_replay.py): per kernel the summed ms, summed
+    bound and roofline share.  These launches count in no run's LAUNCHES:
+    the counts are reset before every driven path."""
     res = replay(shapes, gotoh_cuda, dev)
-    print_replay("main path (config 3 cold-run launch list)", res, card_line())
+    print_replay(f"main path (config {config} cold-run launch list)", res, card_line())
     return res
 
 
@@ -333,6 +339,60 @@ def tree_branch(dev) -> dict:
     return {"seconds": r["seconds"], "launches": r["launches"]}
 
 
+def repeatoire_run(genome, golden: dict, label: str, dev) -> dict:
+    """Repeatoire on the card as the CLI runs it with --seeds (seeds,
+    chaining, then find_repeats on the chained list), every launch count set
+    to 0 just before it; held to the golden digest, with every kernel
+    launched."""
+    rp = repeatoire.Repeatoire(repeatoire.RepeatoireOptions(device=str(dev)))
+    timing.GLOBAL.reset()
+    gotoh_cuda.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ml, counts = rp.chain_seed_matches(rp.seed_matches(genome), genome)
+    fams = rp.find_repeats(genome, matches=(ml, counts))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(gotoh_cuda.LAUNCHES)
+    shapes = list(gotoh_cuda.LAUNCH_SHAPES)
+    got = digest.repeatoire_digest(repeatoire, write_match_list, genome, fams, ml)
+    c = timing.GLOBAL.counters
+    say(f"{label}: {secs:.3f} s, {json.dumps(got)}, launches {launches}, "
+        f"dp_cells {c.get('dp_cells', 0):.0f}, dp_calls {c.get('dp_calls', 0):.0f}, "
+        f"waves {c.get('rp_ext_waves', 0):.0f}, jobs {c.get('rp_ext_jobs', 0):.0f}")
+    say(f"{label} per-phase report:\n" + timing.GLOBAL.report().rstrip())
+    say(f"{label} peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+    for k in digest.REPEATOIRE_KEYS:
+        if got[k] != golden[k]:
+            raise SystemExit(f"{label}: {k} = {got[k]!r}, golden {golden[k]!r}")
+    for k in KERNELS:
+        if launches[k] <= 0:
+            raise SystemExit(f"{label}: kernel {k} was never launched")
+    return {"seconds": secs, "launches": launches, "shapes": shapes}
+
+
+def config4(dev) -> dict:
+    """BASELINE config 4 (scripts/bench_configs.py config4: 236 kbp, the
+    600 bp unit 8x and the 300 bp unit 4x between random spacers, seed 37),
+    default RepeatoireOptions, cold and warm."""
+    genome = simulate.planted_repeats(1)
+    golden = load_golden("config4_golden.json", [genome])
+    say("config4 genome matches the golden sha256")
+    return {label: repeatoire_run(genome, golden, f"config4 {label}", dev)
+            for label in ("cold", "warm")}
+
+
+def config4_big(dev) -> dict:
+    """Config 4's generator with every spacer 4x as long (926 kbp, the same
+    planted families; cut from a bacterial chromosome in length only),
+    default RepeatoireOptions, once."""
+    genome = simulate.planted_repeats(4)
+    golden = load_golden("config4_big_golden.json", [genome])
+    say("config4_big genome matches the golden sha256")
+    return repeatoire_run(genome, golden, "config4_big", dev)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -356,7 +416,10 @@ def main() -> int:
     runs = config1(dev)
     runs3 = config3(dev)
     runs_tree = tree_branch(dev)
-    mainpath = mainpath_times(dev, runs3["cold"]["shapes"])
+    runs4 = config4(dev)
+    runs4_big = config4_big(dev)
+    mainpath = mainpath_times(dev, runs3["cold"]["shapes"], "3")
+    mainpath4 = mainpath_times(dev, runs4["cold"]["shapes"], "4")
 
     kernels = []
     for name, replaces in KERNELS.items():
@@ -374,6 +437,8 @@ def main() -> int:
                 "config1": runs["cold"]["launches"][name],
                 "config3": runs3["cold"]["launches"][name],
                 "tree": runs_tree["launches"][name],
+                "config4": runs4["cold"]["launches"][name],
+                "config4_big": runs4_big["launches"][name],
             },
             "max_abs_err": s["max_abs_err"],
             # ms, plain_ms and bound_ms at the largest timed side
@@ -390,13 +455,18 @@ def main() -> int:
             "mainpath_ms": m["ms"],
             "mainpath_bound_ms": m["bound_ms"],
             "mainpath_launches": m["launches"],
+            # config 4's cold-run launch list replayed the same way
+            "mainpath_config4_ms": mainpath4[name]["ms"],
+            "mainpath_config4_bound_ms": mainpath4[name]["bound_ms"],
+            "mainpath_config4_launches": mainpath4[name]["launches"],
         })
         if name == "gotoh_traceback":
             # the longest walk's dependent steps (scripts/gotoh_replay.py),
             # at the largest timed side and summed over config 3's list
             kernels[-1].update(chain_floor_ms=s["chain_floor_ms"],
                                mainpath_chain_floor_ms=m["chain_floor_ms"],
-                               mainpath_after_forward_ms=m["after_forward_ms"])
+                               mainpath_after_forward_ms=m["after_forward_ms"],
+                               mainpath_config4_chain_floor_ms=mainpath4[name]["chain_floor_ms"])
     say(card_line())
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

@@ -27,9 +27,11 @@ Pipeline parity with doAlignment in src/progressiveMauve.cpp:265-723:
 Determinism: all randomness flows from DEFAULT_RANDOM_SEED=37
 (SetTwisterSeed(37), src/progressiveMauve.cpp:355).
 
-The port always takes the device anchor search: the JAX package's on-disk
-sorted-mer-list cache (its use_sml_cache option) is not ported, and a mesh
-(multi-device runs) raises until slice 5 of the port.
+With use_sml_cache (the default) and genome file names, as the CLI always
+has them, the anchor search goes through the on-disk sorted-mer-list cache
+and the host seed-group path (core/sml.load_sml, matchops.find_multi_mums),
+as in the JAX package; otherwise it takes the device search.  A mesh
+(multi-device runs) raises: it has no counterpart in the port yet.
 """
 
 from __future__ import annotations
@@ -50,7 +52,7 @@ from mauvealigner_tpu_torch.analysis.tree import (
 )
 from mauvealigner_tpu_torch.core.interval import IntervalList
 from mauvealigner_tpu_torch.core.match import MatchList
-from mauvealigner_tpu_torch.core.sml import build_mer_list_device
+from mauvealigner_tpu_torch.core.sml import build_mer_list_device, build_sml, load_sml
 from mauvealigner_tpu_torch.genome.sequence import Genome
 from mauvealigner_tpu_torch.models import closure
 from mauvealigner_tpu_torch.models.aligner import AlignerOptions, MauveAligner, resolve_device
@@ -100,6 +102,9 @@ class ProgressiveOptions:
     # floor for the scaled breakpoint penalty (setMinimumBreakpointPenalty,
     # src/progressiveMauve.cpp:648-651)
     min_scaled_penalty: Optional[float] = None
+    # anchor search through the sorted-mer-list disk cache when the genomes
+    # have file names (LoadSMLs, src/progressiveMauve.cpp:447-451)
+    use_sml_cache: bool = True
     # true progressive anchoring up the guide tree: per-node pairwise
     # alignment of clade consensus representatives (the ancestral-profile
     # anchoring of src/progressiveMauve.cpp:575-710, consensus-ladder
@@ -214,6 +219,15 @@ class ProgressiveMauve:
                 ml = cur if ml is None else ml.concat(cur).dedup()
             return ml if ml is not None else MatchList.empty(len(genomes))
         seed = get_seed(weight, self._seed_rank())
+        if o.use_sml_cache and any(g.filename for g in genomes):
+            # disk-cache path: per-genome load-or-build, like the reference's
+            # LoadSMLs (genomes without file names just build in memory)
+            smls = [
+                load_sml(g, seed, device=self.device) if g.filename
+                else build_sml(g, seed, self.device)
+                for g in genomes
+            ]
+            return matchops.find_multi_mums(genomes, smls, device=self.device)
         smls_dev = [build_mer_list_device(g, seed, self.device) for g in genomes]
         return matchops.find_multi_mums_device(
             genomes, smls_dev, seed_length=seed.length, sketch_mod=sketch_mod

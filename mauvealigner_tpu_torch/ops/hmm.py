@@ -16,11 +16,12 @@ transition (f64) tables can differ by an ulp, which moves posteriors by up
 to ~1e-7 (ROADMAP Queue C); the thresholded bits agree on the test inputs.
 
 Ported: pair_rows_state0_gt (the device row path the backbone uses) and
-bucketed_decode in modes "threshold0" and "posterior0" (the host symbol
-path kept for cross-validation), for 2 states.  The JAX package's bit
-packing of the thresholded posteriors is a transfer-size measure and is
+bucketed_decode in modes "threshold0" (the backbone's host symbol path and
+repeatoire's extension gate), "posterior0" and "prefix0" (the JAX package's
+forward_backward_prefix / _fb_prefix_sym), for 2 states.  The JAX package's
+bit packing of the thresholded posteriors is a transfer-size measure and is
 dropped: the bools stay on the device until one transfer.  Not ported yet:
-the prefix0 mode (repeatoire), the general S-state path and viterbi.
+the general S-state path and viterbi.
 """
 
 from __future__ import annotations
@@ -203,7 +204,7 @@ def bucketed_decode(
                           # emit_table) uint8/int8 [T_j] symbol streams
     log_trans,            # [2, 2]
     log_init,             # [2]
-    mode: str,            # "posterior0" | "threshold0"
+    mode: str,            # "posterior0" | "threshold0" | "prefix0"
     threshold: float = 0.5,
     max_cols: int = 1 << 16,
     mem_budget: int = 1 << 27,
@@ -217,12 +218,10 @@ def bucketed_decode(
     in the JAX package — the scan's tree, and so its rounding, depends on
     the padded length.  Returns a list aligned with `log_emits`:
       posterior0 -> np.float64 [T_j] P(state 0);
-      threshold0 -> np.bool_  [T_j] P(state 0) > threshold."""
-    if mode not in ("posterior0", "threshold0"):
-        raise NotImplementedError(
-            f"bucketed_decode mode {mode!r} is not ported (prefix0 comes with "
-            "repeatoire, ROADMAP slice 3)"
-        )
+      threshold0 -> np.bool_  [T_j] P(state 0) > threshold;
+      prefix0    -> int, leading steps with P(state 0) >= threshold."""
+    if mode not in ("posterior0", "threshold0", "prefix0"):
+        raise ValueError(f"unknown mode {mode!r}")
     lt = torch.as_tensor(np.asarray(log_trans, np.float64), device=device)
     li = torch.as_tensor(np.asarray(log_init, np.float64), device=device)
     S = int(li.shape[0])
@@ -236,7 +235,10 @@ def bucketed_decode(
     for idx, le_row in enumerate(log_emits):
         T = len(le_row)
         if T == 0:
-            out[idx] = np.zeros(0, bool if mode == "threshold0" else np.float64)
+            out[idx] = (
+                0 if mode == "prefix0"
+                else np.zeros(0, bool if mode == "threshold0" else np.float64)
+            )
             continue
         if T > max_cols:
             raise ValueError(f"job length {T} exceeds max_cols {max_cols}")
@@ -264,9 +266,19 @@ def bucketed_decode(
                         f"table with {tab.shape[0]} symbols"
                     )
                 led = tab[led.long()]
-            post0 = _forward_backward_state0(led, lt, li, torch.from_numpy(lengths).to(device))
+            lend = torch.from_numpy(lengths).to(device)
+            post0 = _forward_backward_state0(led, lt, li, lend)
             # the JAX package compares against an f32 threshold here
             thr = float(np.float32(threshold))
+            if mode == "prefix0":
+                # first live step below the threshold ends the prefix
+                iota = torch.arange(Tp, device=post0.device)
+                bad = (iota[None, :] < lend[:, None]) & (post0 < thr)
+                first_bad = torch.where(bad, iota[None, :], Tp).min(dim=1).values
+                res = torch.minimum(first_bad, lend).cpu().numpy()
+                for bi, idx in enumerate(chunk):
+                    out[idx] = int(res[bi])
+                continue
             res = (post0 > thr if mode == "threshold0" else post0).cpu().numpy()
             for bi, idx in enumerate(chunk):
                 out[idx] = res[bi, : int(lengths[bi])]

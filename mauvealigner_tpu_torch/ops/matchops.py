@@ -24,10 +24,16 @@ bit differs from the reference's gets a negative start.
 All integer arithmetic matches the JAX package bit for bit: int64 products
 and sums wrap in two's complement, and every `>>` of a possibly negative
 int64 is masked to emulate a logical shift, exactly as there.
+
+The host seed-group path over sorted mer lists (build_seed_groups and what
+reads it: find_multi_mums for the SML disk cache, repeat_matches_from_groups
+and merge_collinear_runs for repeatoire) is the JAX package's host NumPy
+after one device sort.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 import warnings
 from typing import Optional, Sequence, Tuple
@@ -36,12 +42,14 @@ import numpy as np
 import torch
 
 from mauvealigner_tpu_torch.core.match import NO_MATCH, MatchList
+from mauvealigner_tpu_torch.core.sml import SortedMerList
 from mauvealigner_tpu_torch.genome.sequence import CODE_N, Genome
 from mauvealigner_tpu_torch.ops import merops
 from mauvealigner_tpu_torch.ops.merops import INVALID_KEY
 from mauvealigner_tpu_torch.utils import timing
 
 _INT32_MAX = np.iinfo(np.int32).max
+_INT64_MAX = np.iinfo(np.int64).max
 
 _MIX_C1 = -7046029254386353131  # 0x9E3779B97F4A7C15 as signed
 _MIX_C2 = -4417276706812531889  # 0xC2B2AE3D27D4EB4F
@@ -439,6 +447,274 @@ def extend_matches_maximal(
     out = MatchList(starts, lengths)
     return out.dedup() if dedup else out
 
+
+
+# ---------------------------------------------------------------------------
+# Host seed-group path over sorted mer lists (the disk-cache search of
+# progressiveMauve and repeatoire's seeding): one device sort, then host
+# NumPy, as in the JAX package.
+# ---------------------------------------------------------------------------
+
+
+def _device_sorted_entries(smls: Sequence[SortedMerList], device="cuda"):
+    """Concatenate per-genome SMLs and sort them by (mer, genome, position)
+    on `device`; host (mer int64, seq int32, pos int32, strand int32).
+
+    Unlike _global_sort, this cannot rely on the input order: each SML is
+    sorted by its full key, strand bit in the LSB, so within one mer a
+    genome's strand-0 entries come before its strand-1 entries whatever
+    their positions.  A sort by (genome, position) first, then a stable sort
+    by mer, gives the full order.  The JAX package's bucket-ladder padding
+    only bounded its compiles and is dropped."""
+    if not smls or sum(len(s.keys) for s in smls) == 0:
+        return (np.zeros(0, np.int64), np.zeros(0, np.int32),
+                np.zeros(0, np.int32), np.zeros(0, np.int32))
+    keys = torch.from_numpy(np.concatenate([s.keys for s in smls])).to(device)
+    pos = torch.from_numpy(
+        np.concatenate([s.positions for s in smls]).astype(np.int32)
+    ).to(device)
+    seq = torch.cat([
+        torch.full((len(s.keys),), i, dtype=torch.int32, device=keys.device)
+        for i, s in enumerate(smls)
+    ])
+    # (genome, position) pairs are distinct: this sort needs no stability
+    order = torch.sort((seq.to(torch.int64) << 32) | pos.to(torch.int64)).indices
+    mer = keys[order] >> 1
+    mer_s, o2 = torch.sort(mer, stable=True)
+    order = order[o2]
+    return (
+        mer_s.cpu().numpy(),
+        seq[order].cpu().numpy(),
+        pos[order].cpu().numpy(),
+        (keys[order] & 1).to(torch.int32).cpu().numpy(),
+    )
+
+
+@dataclasses.dataclass
+class SeedGroups:
+    """Sorted seed-group representation (ragged, host side)."""
+
+    mer: np.ndarray       # int64 [N] sorted strand-free mers
+    seq: np.ndarray       # int32 [N]
+    pos: np.ndarray       # int32 [N] 0-based window starts
+    strand: np.ndarray    # int32 [N] canonical-strand bit per window
+    seg_id: np.ndarray    # int64 [N] group index
+    occ_unique: np.ndarray  # bool [N] occurrence is unique within its genome
+    n_segs: int
+
+
+def build_seed_groups(smls: Sequence[SortedMerList], device="cuda") -> SeedGroups:
+    mer, seq, pos, strand = _device_sorted_entries(smls, device)
+    n = len(mer)
+    if n == 0:
+        return SeedGroups(mer, seq, pos, strand, np.zeros(0, np.int64), np.zeros(0, bool), 0)
+    new_seg = np.empty(n, dtype=bool)
+    new_seg[0] = True
+    np.not_equal(mer[1:], mer[:-1], out=new_seg[1:])
+    seg_id = np.cumsum(new_seg) - 1
+    same_ms = np.zeros(n, dtype=bool)
+    same_ms[1:] = (~new_seg[1:]) & (seq[1:] == seq[:-1])
+    occ_unique = ~same_ms
+    occ_unique[:-1] &= ~same_ms[1:]
+    return SeedGroups(mer, seq, pos, strand, seg_id, occ_unique, int(seg_id[-1]) + 1)
+
+
+def seed_matches_from_groups(
+    groups: SeedGroups,
+    n_seqs: int,
+    seed_length: int,
+    unique: bool = True,
+    min_multi: int = 2,
+    max_multi: Optional[int] = None,
+    seq_mask: Optional[np.ndarray] = None,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Dense seed-match rows from seed groups, unique-MUM semantics: a
+    genome participates in a group's match only if its occurrence count in
+    the group is exactly one (UniqueMatchFinder,
+    src/UniqueMatchFinder.cpp:36-60).  Groups with fewer than min_multi
+    participating genomes are dropped; max_multi bounds the multiplicity
+    (rmin/rmax of SeedMatchEnumerator::FindMatches,
+    src/SeedMatchEnumerator.h:19-23).
+
+    Returns (pos0 int64 [m, n_seqs] 0-based window starts, -1 = absent,
+    rel_strand int8 [m, n_seqs], ref_seq int32 [m]).  Repeat mode is
+    repeat_matches_from_groups."""
+    if not unique:
+        raise ValueError("use repeat_matches_from_groups for repeat mode")
+    g = groups
+    comp = g.occ_unique.copy()
+    if seq_mask is not None:
+        comp &= np.asarray(seq_mask, dtype=bool)[g.seq]
+    counts = np.bincount(g.seg_id[comp], minlength=g.n_segs)
+    ok_seg = counts >= min_multi
+    if max_multi is not None:
+        ok_seg &= counts <= max_multi
+    keep = comp & ok_seg[g.seg_id]
+    if not keep.any():
+        return (
+            np.full((0, n_seqs), -1, np.int64),
+            np.zeros((0, n_seqs), np.int8),
+            np.zeros(0, np.int32),
+        )
+    seg_sel = np.unique(g.seg_id[keep])
+    remap = np.full(g.n_segs, -1, np.int64)
+    remap[seg_sel] = np.arange(len(seg_sel))
+    rows = remap[g.seg_id[keep]]
+    cols = g.seq[keep]
+    m = len(seg_sel)
+    pos0 = np.full((m, n_seqs), -1, np.int64)
+    strand = np.zeros((m, n_seqs), np.int8)
+    pos0[rows, cols] = g.pos[keep]
+    strand[rows, cols] = g.strand[keep]
+    # reference component: first participating genome; rel strand by parity
+    present = pos0 >= 0
+    ref_seq = np.argmax(present, axis=1).astype(np.int32)
+    ref_strand = strand[np.arange(m), ref_seq]
+    rel_strand = np.where(present, strand ^ ref_strand[:, None], 0).astype(np.int8)
+    return pos0, rel_strand, ref_seq
+
+
+def merge_collinear_runs(
+    pos0: np.ndarray, rel_strand: np.ndarray, ref_seq: np.ndarray, seed_length: int
+) -> MatchList:
+    """Merge diagonal-consistent consecutive seed windows into single
+    matches: consecutive reference positions with identical component
+    structure (same genomes, relative strands and diagonal invariants) form
+    one match.  The invariant of component j at reference window position
+    p0 is pos_j - p0 for relatively-forward components and pos_j + p0 for
+    relatively-reverse ones (whose window slides left as the reference
+    window slides right)."""
+    m, n_seqs = pos0.shape
+    if m == 0:
+        return MatchList.empty(n_seqs)
+    present = pos0 >= 0
+    p0 = pos0[np.arange(m), ref_seq].astype(np.int64)
+    inv = np.where(
+        present,
+        np.where(rel_strand == 0, pos0 - p0[:, None], pos0 + p0[:, None]),
+        _INT64_MAX,
+    )
+    sig_strand = np.where(present, rel_strand, -1)
+    # lexsort's LAST key is primary: rows order by the signature columns,
+    # then p0 within a signature
+    sort_keys = [p0]
+    for j in range(n_seqs - 1, -1, -1):
+        sort_keys.append(sig_strand[:, j])
+        sort_keys.append(inv[:, j])
+    order = np.lexsort(sort_keys)
+    inv_s, strand_s, p0_s = inv[order], sig_strand[order], p0[order]
+    same_sig = np.all(inv_s[1:] == inv_s[:-1], axis=1) & np.all(
+        strand_s[1:] == strand_s[:-1], axis=1
+    )
+    run_continue = same_sig & (p0_s[1:] == p0_s[:-1] + 1)
+    run_start = np.concatenate([[True], ~run_continue])
+    first_idx = np.nonzero(run_start)[0]
+    run_len = np.diff(np.concatenate([first_idx, [m]]))
+    p0_min = p0_s[first_idx]
+    p0_max = p0_min + run_len - 1
+    inv_r = inv_s[first_idx]
+    strand_r = strand_s[first_idx]
+    lengths = (p0_max - p0_min) + seed_length
+    present_r = strand_r >= 0
+    left0 = np.where(
+        strand_r == 0,
+        inv_r + p0_min[:, None],
+        inv_r - p0_max[:, None],
+    )
+    starts = np.where(
+        present_r,
+        np.where(strand_r == 0, left0 + 1, -(left0 + 1)),
+        NO_MATCH,
+    )
+    return MatchList(starts, lengths)
+
+
+def find_multi_mums(
+    genomes: Sequence[Genome],
+    smls: Sequence[SortedMerList],
+    min_multi: int = 2,
+    max_multi: Optional[int] = None,
+    nway: bool = False,
+    seq_mask: Optional[np.ndarray] = None,
+    extend: bool = True,
+    device="cuda",
+) -> MatchList:
+    """Unique multi-MUM search over sorted mer lists (the MaskedMemHash /
+    UniqueMatchFinder pipeline, src/mauveAligner.cpp:523-590)."""
+    seed_length = smls[0].seed_length if smls else 0
+    groups = build_seed_groups(smls, device)
+    pos0, rel_strand, ref_seq = seed_matches_from_groups(
+        groups,
+        n_seqs=len(genomes),
+        seed_length=seed_length,
+        unique=True,
+        min_multi=min_multi,
+        max_multi=max_multi,
+        seq_mask=seq_mask,
+    )
+    ml = merge_collinear_runs(pos0, rel_strand, ref_seq, seed_length)
+    if extend and len(ml):
+        ml = extend_matches_maximal(ml, [g.codes for g in genomes])
+    if nway:
+        ml = ml.multiplicity_filter(len(genomes))
+    return ml
+
+
+def repeat_matches_from_groups(
+    groups: SeedGroups,
+    seed_length: int,
+    min_multi: int = 2,
+    max_multi: int = 1000,
+    only_direct: bool = False,
+) -> MatchList:
+    """Seed matches for repeat finding: every occurrence participates
+    (RepeatHash / SeedMatchEnumerator semantics,
+    src/SeedMatchEnumerator.h:59-141, incl. the only_direct projection to
+    forward-strand components).  Components of one match sit left-compacted
+    in a dense [m, width] table; the first entry of each group (in
+    (mer, genome, position) order) is the reference component."""
+    g = groups
+    if len(g.mer) == 0:
+        return MatchList.empty(1)
+    counts = np.bincount(g.seg_id, minlength=g.n_segs)
+    ok = (counts >= min_multi) & (counts <= max_multi)
+    keep = ok[g.seg_id]
+    if not keep.any():
+        return MatchList.empty(int(counts.max(initial=1)))
+    seg = g.seg_id[keep]
+    pos = g.pos[keep].astype(np.int64)
+    strand = g.strand[keep]
+    seg_sel, seg_start = np.unique(seg, return_index=True)
+    m = len(seg_sel)
+    remap = np.full(g.n_segs, -1, np.int64)
+    remap[seg_sel] = np.arange(m)
+    rows = remap[seg]
+    ref_strand = strand[seg_start[rows]]
+    rel = strand ^ ref_strand
+    signed = np.where(rel == 0, pos + 1, -(pos + 1))
+    if only_direct:
+        # forward-strand components only (src/SeedMatchEnumerator.h:88-117)
+        keep_comp = rel == 0
+        rows, signed = rows[keep_comp], signed[keep_comp]
+    # left-compact components into dense columns per row
+    if len(rows):
+        order = np.argsort(rows, kind="stable")
+        rows, signed = rows[order], signed[order]
+        row_first = np.zeros(len(rows), np.int64)
+        is_first = np.concatenate([[True], rows[1:] != rows[:-1]])
+        idx_first = np.nonzero(is_first)[0]
+        row_first[idx_first] = idx_first
+        np.maximum.accumulate(row_first, out=row_first)
+        cols = np.arange(len(rows)) - row_first
+        width = int(cols.max()) + 1
+    else:
+        cols = rows
+        width = 1
+    starts = np.zeros((m, max(width, 1)), np.int64)
+    starts[rows, cols] = signed
+    lengths = np.full(m, seed_length, np.int64)
+    ml = MatchList(starts, lengths)
+    return ml.select(ml.multiplicity() >= min_multi)
 
 # ---------------------------------------------------------------------------
 # Batched multi-gap recursion search: all gaps of a recursion round are

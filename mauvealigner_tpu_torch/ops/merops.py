@@ -1,6 +1,7 @@
 """K1: spaced-mer packing and strand canonicalization, in torch.
 
-Port of mauvealigner_tpu/ops/merops.py (pack_canonical_mers, build_mer_list);
+Port of mauvealigner_tpu/ops/merops.py (pack_canonical_mers, build_mer_list,
+and the sorted variants build_sorted_mer_list and sort_key_pos);
 libMems SortedMerList/DNAFileSML construction in the reference
 (src/mauveAligner.cpp:365, src/progressiveMauve.cpp:447).
 
@@ -67,3 +68,27 @@ def build_mer_list(
     keys = pack_canonical_mers(codes, offsets, pattern_len)
     positions = torch.arange(keys.shape[0], dtype=torch.int32, device=codes.device)
     return keys, positions
+
+
+def sort_key_pos(keys: torch.Tensor, positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sort (key, position) pairs by key, then position.  `positions` must be
+    ascending (an iota): one stable sort by the int64 key then gives the
+    (key, position) order.  The JAX package splits the key into 32-bit
+    halves and has an int32 fast path for small seeds; both only suited the
+    TPU's sort lanes and give the same order."""
+    keys_s, order = torch.sort(keys, stable=True)
+    return keys_s, positions[order]
+
+
+def build_sorted_mer_list(
+    codes: torch.Tensor, offsets: Sequence[int], pattern_len: int
+) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """Full K1 pipeline: pack, canonicalize, sort.
+
+    Returns (keys int64 [n_pos], positions int32 [n_pos], n_valid): sorted by
+    (key, position), positions 0-based window starts, INVALID_KEY entries at
+    the tail and counted out by n_valid."""
+    keys, positions = build_mer_list(codes, offsets, pattern_len)
+    keys_s, pos_s = sort_key_pos(keys, positions)
+    n_valid = int((keys_s != INVALID_KEY).sum())
+    return keys_s, pos_s, n_valid

@@ -1,26 +1,32 @@
-"""CLI of the port: the mauveAligner and progressiveMauve subcommands.
+"""CLI of the port: the mauveAligner, progressiveMauve, repeatoire,
+scoreProcrastAlignment and scoreALU subcommands.
 
 Usage:  python -m mauvealigner_tpu_torch.tools mauveAligner a.fa b.fa \\
             --output-alignment=o.xmfa [--device=cuda]
         python -m mauvealigner_tpu_torch.tools progressiveMauve a.fa b.fa c.fa \\
             --output=o.xmfa [--device=cuda]
+        python -m mauvealigner_tpu_torch.tools repeatoire --sequence=g.fa \\
+            --output=reps.xmfa [--xml=reps.xml] [--device=cuda]
         python -m mauvealigner_tpu_torch.tools --list
 
 Port of mauvealigner_tpu/tools/cli.py's mauveAligner alignment path
 (src/mauveAligner.cpp: anchoring, LCBs, LCB extension, recursive anchoring,
-gapped closure, the match list and the XMFA output) and its progressiveMauve
+gapped closure, the match list and the XMFA output), its progressiveMauve
 subcommand (src/progressiveMauve.cpp: XMFA, .backbone, .bbcols and
-.guide_tree outputs, --mums, --match-input).  What is not ported yet is
-listed in ROADMAP.md.
+.guide_tree outputs, --mums, --match-input, the SML disk cache), its
+repeatoire subcommand (src/repeatoire.cpp: XMFA, XML, procrast.highest,
+--score-out and --seeds outputs) and the two repeat scorers.  What is not
+ported yet is listed in ROADMAP.md.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import sys
 from typing import Callable, Dict, List
 
-from mauvealigner_tpu_torch.tools.common import load_genomes, open_out
+from mauvealigner_tpu_torch.tools.common import load_genome, load_genomes, open_out
 
 TOOLS: Dict[str, Callable[[List[str]], int]] = {}
 
@@ -219,8 +225,8 @@ def progressive_mauve_cli(argv: List[str]) -> int:
     p.add_argument("--version", action="version",
                    version="%(prog)s (mauvealigner_tpu_torch)")
     p.add_argument("--disable-cache", action="store_true",
-                   help="accepted; the port has no SML disk cache, so this "
-                   "is always in effect")
+                   help="do not read or write the sorted-mer-list cache files "
+                   "(<seqfile>.<pattern>.sslist.npz) beside the inputs")
     p.add_argument("--mem-clean", action="store_true", help="accepted; no-op")
     p.add_argument("--debug", action="store_true",
                    help="perform internal consistency checks (very slow)")
@@ -270,6 +276,7 @@ def progressive_mauve_cli(argv: List[str]) -> int:
         lca_member_scoring=a.lca_member_scoring,
         tree_prune_private=not a.no_tree_prune,
         tree_prune_max_run=a.tree_prune_max_run,
+        use_sml_cache=not a.disable_cache,
         device=a.device,
     )
     if a.gap_open is not None:
@@ -309,6 +316,195 @@ def progressive_mauve_cli(argv: List[str]) -> int:
         from mauvealigner_tpu_torch.utils import timing
 
         sys.stderr.write(timing.GLOBAL.report())
+    return 0
+
+
+@tool("repeatoire")
+def repeatoire_cli(argv: List[str]) -> int:
+    p = argparse.ArgumentParser(
+        prog="repeatoire",
+        description="De-novo repeat family detection by chained local "
+        "multiple alignment (reference: src/repeatoire.cpp)",
+    )
+
+    def _bool(s: str) -> bool:
+        return s.lower() not in ("0", "false", "no")
+
+    p.add_argument("--sequence", required=True)
+    p.add_argument("--z", type=int, default=0, help="seed weight")
+    p.add_argument("--rmin", type=int, default=2)
+    p.add_argument("--rmax", type=int, default=500)
+    p.add_argument("--onlydirect", nargs="?", type=_bool, const=True,
+                   default=False, help="only same-strand seed matches")
+    p.add_argument("--minreplen", "--l", dest="minreplen", type=int, default=1,
+                   help="minimum repeat length (reference --l, default 1)")
+    p.add_argument("--no-extend", action="store_true")
+    p.add_argument("--extend", type=_bool, default=True,
+                   help="perform gapped extension on chains (default 1)")
+    p.add_argument("--chain", type=_bool, default=True,
+                   help="chain seeds (default 1)")
+    p.add_argument("--allow-redundant", type=_bool, default=True,
+                   help="allow redundant alignments (default 1; 0 crops "
+                   "per-nucleotide overlaps, src/repeatoire.cpp:2538-2658)")
+    p.add_argument("--large-repeats", type=_bool, default=False,
+                   help="optimize for large repeats (crop order by length)")
+    p.add_argument("--small-repeats", type=_bool, default=False,
+                   help="optimize for small repeats")
+    p.add_argument("--onlyextended", type=_bool, default=False,
+                   help="only output extended matches")
+    p.add_argument("--window", type=int, default=-1,
+                   help="gapped-extension window override (-1 = 80*e^(-0.01m))")
+    p.add_argument("--w", type=int, default=0,
+                   help="neighborhood window (0 = seed_weight*3)")
+    p.add_argument("--gapopen", type=float, default=0,
+                   help="gap open penalty (0 = hoxd default -100)")
+    p.add_argument("--gapextend", type=float, default=0,
+                   help="gap extension penalty (0 = hoxd default -20)")
+    p.add_argument("--h", type=float, default=0.008, dest="go_homo",
+                   help="HMM transition to Homologous")
+    p.add_argument("--u", type=float, default=0.001, dest="go_unrel",
+                   help="HMM transition to Unrelated")
+    p.add_argument("--percentid", type=float, default=0.0,
+                   help="min repeat family %% id (adapts HMM emissions)")
+    p.add_argument("--sp", type=float, default=0.0,
+                   help="minimum Sum-of-Pairs alignment score")
+    p.add_argument("--tandem", type=_bool, default=True,
+                   help="allow tandem repeats (default 1)")
+    p.add_argument("--two-hits", type=_bool, default=False,
+                   help="require two chained hits to trigger gapped extension")
+    p.add_argument("--novel-matches", type=_bool, default=True,
+                   help="use novel matches found during gapped extension "
+                        "(src/repeatoire.cpp:1726)")
+    p.add_argument("--solid", type=_bool, default=False,
+                   help="use solid/exact seeds")
+    p.add_argument("--load-sml", type=_bool, default=False,
+                   help="reuse the on-disk SML cache")
+    p.add_argument("--unalign", type=_bool, default=True,
+                   help="accepted for reference compatibility (the flag is "
+                   "declared but never consumed in src/repeatoire.cpp)")
+    p.add_argument("--novel-subsets", nargs="?", type=_bool, const=True,
+                   default=False,
+                   help="find novel subset matches (reference default false, "
+                   "src/repeatoire.cpp:1725)")
+    p.add_argument("--seeds", default="", help="seed (chained match) output file")
+    p.add_argument("--score-out", default="",
+                   help="per-family score and alignment info output")
+    p.add_argument("--output", "--xmfa", dest="output", default="reps.xmfa",
+                   help="XMFA output")
+    p.add_argument("--xml", default="", help="XML output")
+    p.add_argument("--highest", default="procrast.highest",
+                   help="per-multiplicity stats output")
+    p.add_argument("--device", default="cuda",
+                   help="torch device: cuda runs the CUDA kernels, cpu the "
+                   "plain-torch versions (no fallback between them)")
+    a = p.parse_args(argv)
+
+    from mauvealigner_tpu_torch.core.mln import write_match_list
+    from mauvealigner_tpu_torch.models.repeatoire import (
+        Repeatoire,
+        RepeatoireOptions,
+        write_highest_stats,
+        write_repeats_xmfa,
+        write_repeats_xml,
+        write_score_out,
+    )
+
+    genome = load_genome(a.sequence)
+    opts = RepeatoireOptions(
+        z=a.z,
+        rmin=a.rmin,
+        rmax=a.rmax,
+        only_direct=a.onlydirect,
+        min_length=a.minreplen,
+        extend=a.extend and not a.no_extend,
+        chain=a.chain,
+        allow_redundant=a.allow_redundant,
+        large_repeats=a.large_repeats,
+        small_repeats=a.small_repeats,
+        only_extended=a.onlyextended,
+        window=a.window,
+        w=a.w,
+        min_sp_score=a.sp,
+        allow_tandem=a.tandem,
+        two_hits=a.two_hits,
+        use_novel_matches=a.novel_matches,
+        solid=a.solid,
+        load_sml=a.load_sml,
+        percent_id=a.percentid,
+        hmm_go_homologous=a.go_homo,
+        hmm_go_unrelated=a.go_unrel,
+        find_novel_subsets=a.novel_subsets,
+        device=a.device,
+    )
+    if a.gapopen:
+        opts.gap_open = -abs(a.gapopen)
+    if a.gapextend:
+        opts.gap_extend = -abs(a.gapextend)
+    rp = Repeatoire(opts)
+    matches = None
+    if a.seeds:
+        ml = rp.seed_matches(genome)
+        seed_counts = None
+        if opts.chain:
+            ml, seed_counts = rp.chain_seed_matches(ml, genome)
+        write_match_list(ml, a.seeds, [genome.name], [len(genome)])
+        matches = (ml, seed_counts)
+    fams = rp.find_repeats(genome, matches=matches)
+    write_repeats_xmfa(fams, genome, a.output)
+    if a.xml:
+        write_repeats_xml(fams, genome, a.xml)
+    if a.highest:
+        write_highest_stats(fams, a.highest)
+    if a.score_out:
+        write_score_out(fams, genome, a.score_out)
+    print(f"{len(fams)} repeat families")
+    return 0
+
+
+@tool("scoreProcrastAlignment")
+def score_procrast_cli(argv: List[str]) -> int:
+    p = argparse.ArgumentParser(
+        prog="scoreProcrastAlignment",
+        description="Score a calculated repeat alignment against a correct "
+        "one (reference: src/scoreProcrastAlignment.cpp)",
+    )
+    p.add_argument("correct")
+    p.add_argument("calculated")
+    a = p.parse_args(argv)
+    from mauvealigner_tpu_torch.analysis.repeat_score import score_procrast_alignment
+    from mauvealigner_tpu_torch.models.repeatoire import read_repeats_xmfa
+
+    score = score_procrast_alignment(
+        read_repeats_xmfa(a.correct), read_repeats_xmfa(a.calculated)
+    )
+    # reference output labels (src/scoreProcrastAlignment.cpp:246-257)
+    print(f"sp_truepos {score.tp}")
+    print(f"sp_possible {score.tp + score.fn}")
+    print(f"SP sensitivity: {score.sensitivity:.6g}")
+    print(f"Match component PPV: {score.ppv:.6g}")
+    return 0
+
+
+@tool("scoreALU")
+def score_alu_cli(argv: List[str]) -> int:
+    p = argparse.ArgumentParser(
+        prog="scoreALU",
+        description="Validate repeat families against RepeatMasker "
+        "annotations (reference: src/scoreALU.cpp)",
+    )
+    p.add_argument("repeats_xmfa")
+    p.add_argument("repeatmasker_out")
+    p.add_argument("--class-filter", default="Alu")
+    a = p.parse_args(argv)
+    from mauvealigner_tpu_torch.analysis.repeat_score import parse_repeatmasker, score_alu
+    from mauvealigner_tpu_torch.models.repeatoire import read_repeats_xmfa
+
+    stats = score_alu(
+        read_repeats_xmfa(a.repeats_xmfa),
+        parse_repeatmasker(a.repeatmasker_out),
+        a.class_filter,
+    )
+    print(json.dumps(stats))
     return 0
 
 

@@ -1,12 +1,14 @@
-"""Digests of a progressive alignment, for holding one run to another.
+"""Digests of a progressive alignment or a repeatoire run, for holding one
+run to another.
 
 progressive_digest summarizes a ProgressiveMauve result into the fields a
 golden file records: which gate branch ran, the guide tree, the LCB and
 interval counts and the sha256 of the XMFA, .backbone and .bbcols texts.
 pair_accuracy scores every (ancestor, descendant) projection against the
 simulation truths.  Both read the result by attribute and write through the
-result's own interval list, so the same code digests a result of the JAX
-package (scripts/make_port_golden.py) and of the port (chip_smoke.py).
+result's own interval list; repeatoire_digest writes through the writers of
+the repeatoire module it is given.  So the same code digests a result of the
+JAX package (scripts/make_port_golden.py) and of the port (chip_smoke.py).
 """
 
 from __future__ import annotations
@@ -69,3 +71,31 @@ def pair_accuracy(ivl, truths, seq_lengths: Sequence[int]) -> List[Dict]:
         fp = int(np.sum((a != 0) & (a != cm)))
         out.append({"pair": f"0-{i}", "sn": tp / max(tp + fn, 1), "ppv": tp / max(tp + fp, 1)})
     return out
+
+
+REPEATOIRE_KEYS = ("n_families", "top_multiplicity", "n_seeds", "xmfa_sha256",
+                   "xml_sha256", "highest_sha256", "score_out_sha256", "seeds_sha256")
+
+
+def repeatoire_digest(rp_mod, write_match_list, genome, fams, seeds) -> Dict:
+    """rp_mod: a repeatoire module (write_repeats_xmfa, write_repeats_xml,
+    write_highest_stats, write_score_out); write_match_list: the same
+    package's core.mln.write_match_list; fams: find_repeats' families;
+    seeds: the chained seed MatchList (the CLI's --seeds output)."""
+    texts = {}
+    for key, write in (
+        ("xmfa", lambda fh: rp_mod.write_repeats_xmfa(fams, genome, fh)),
+        ("xml", lambda fh: rp_mod.write_repeats_xml(fams, genome, fh)),
+        ("highest", lambda fh: rp_mod.write_highest_stats(fams, fh)),
+        ("score_out", lambda fh: rp_mod.write_score_out(fams, genome, fh)),
+        ("seeds", lambda fh: write_match_list(seeds, fh, [genome.name], [len(genome)])),
+    ):
+        buf = io.StringIO()
+        write(buf)
+        texts[key] = buf.getvalue()
+    return {
+        "n_families": len(fams),
+        "top_multiplicity": max((f.multiplicity for f in fams), default=0),
+        "n_seeds": len(seeds),
+        **{f"{k}_sha256": _sha(v) for k, v in texts.items()},
+    }

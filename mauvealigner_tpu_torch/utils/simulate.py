@@ -158,3 +158,22 @@ def enterobacteria_like(size: int, k: int, max_rate: float = 0.08, seed: int = 3
         genomes.append(d)
         truths.append(t)
     return genomes, truths
+
+
+def planted_repeats(spacer_scale: int = 1, seed: int = 37) -> Genome:
+    """The repeat-family genome of scripts/bench_configs.py config4 (same
+    seed, same draws): a 30,000 bp spacer, then 8 copies of one 600 bp unit,
+    each followed by a 20,000 bp spacer, and after every other copy a 300 bp
+    unit and a 10,000 bp spacer: 236,000 bp.  spacer_scale multiplies every
+    spacer's length (4 gives 926,000 bp with the same planted families)."""
+    rng = np.random.default_rng(seed)
+    parts = [random_genome(rng, 30_000 * spacer_scale).seq]
+    unit1 = random_genome(rng, 600).seq
+    unit2 = random_genome(rng, 300).seq
+    for i in range(8):
+        parts.append(unit1.copy())
+        parts.append(random_genome(rng, 20_000 * spacer_scale).seq)
+        if i % 2 == 0:
+            parts.append(unit2.copy())
+            parts.append(random_genome(rng, 10_000 * spacer_scale).seq)
+    return Genome(np.concatenate(parts), name="repeats")

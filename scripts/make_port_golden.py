@@ -15,10 +15,19 @@ mauvealigner_tpu_torch/data/, which chip_smoke.py holds the port to:
   tree  tree_golden.json: the same fields for 9 x 1 Mbp enterobacteria-like
         genomes (utils/simulate.enterobacteria_like(1_000_000, 9, 0.08)),
         which take the tree-progressive branch, plus each (0, i) pair's
-        sn / ppv against the simulation truths (a few minutes).
+        sn / ppv against the simulation truths (a few minutes);
+  4     config4_golden.json: BASELINE config 4, repeatoire on the 236 kbp
+        planted-family genome of scripts/bench_configs.py config4
+        (utils/simulate.planted_repeats()), default RepeatoireOptions, run
+        as the CLI runs it with --seeds: the genome sha256, the family count
+        and top multiplicity, the chained seed count and the sha256 of the
+        XMFA, XML, procrast.highest, --score-out and --seeds texts (about
+        40 s);
+  4big  config4_big_golden.json: the same at bacterial scale, every spacer
+        4x as long (planted_repeats(4), 926 kbp; about 80 s).
 
-Usage:  JAX_PLATFORMS=cpu python scripts/make_port_golden.py [1] [3] [tree]
-        (no argument: all three)
+Usage:  JAX_PLATFORMS=cpu python scripts/make_port_golden.py [1] [3] [tree] [4] [4big]
+        (no argument: all five)
 """
 
 import argparse
@@ -38,6 +47,8 @@ jax.config.update("jax_platforms", "cpu")
 
 import numpy as np  # noqa: E402
 
+from mauvealigner_tpu.core.mln import write_match_list  # noqa: E402
+from mauvealigner_tpu.models import repeatoire  # noqa: E402
 from mauvealigner_tpu.models.aligner import AlignerOptions, MauveAligner  # noqa: E402
 from mauvealigner_tpu.models.progressive import ProgressiveMauve, ProgressiveOptions  # noqa: E402
 from mauvealigner_tpu.utils import simulate, timing  # noqa: E402
@@ -149,12 +160,44 @@ def config1() -> None:
     print(f"config 1: reference run took {seconds:.1f} s on the CPU", file=sys.stderr)
 
 
+def _repeatoire(spacer_scale: int, name: str, label: str) -> None:
+    pg = port_simulate.planted_repeats(spacer_scale)
+    g = simulate.Genome(pg.seq.copy(), name=pg.name)
+    t0 = time.perf_counter()
+    rp = repeatoire.Repeatoire(repeatoire.RepeatoireOptions())
+    ml, counts = rp.chain_seed_matches(rp.seed_matches(g), g)
+    fams = rp.find_repeats(g, matches=(ml, counts))
+    seconds = time.perf_counter() - t0
+    golden = {
+        "config": label,
+        "reference": "mauvealigner_tpu (JAX) on the CPU",
+        "genome_sha256": digest.genome_sha256([g]),
+        "genome_lengths": [len(g)],
+        **digest.repeatoire_digest(repeatoire, write_match_list, g, fams, ml),
+    }
+    _write(name, golden)
+    print(f"{label}: reference run took {seconds:.1f} s on the CPU", file=sys.stderr)
+
+
+def config4() -> None:
+    _repeatoire(1, "config4_golden.json",
+                "BASELINE config 4 (scripts/bench_configs.py config4): seed 37, "
+                "236 kbp planted-family genome, default RepeatoireOptions, with --seeds")
+
+
+def config4_big() -> None:
+    _repeatoire(4, "config4_big_golden.json",
+                "config 4 at bacterial scale: seed 37, every spacer 4x "
+                "(926 kbp), default RepeatoireOptions, with --seeds")
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("configs", nargs="*", choices=["1", "3", "tree"], default=[])
+    p.add_argument("configs", nargs="*", choices=["1", "3", "tree", "4", "4big"], default=[])
     a = p.parse_args()
-    for c in a.configs or ["1", "3", "tree"]:
-        {"1": config1, "3": config3, "tree": tree_branch}[c]()
+    run = {"1": config1, "3": config3, "tree": tree_branch, "4": config4, "4big": config4_big}
+    for c in a.configs or list(run):
+        run[c]()
     return 0
 
 

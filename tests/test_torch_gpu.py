@@ -221,6 +221,59 @@ def test_progressive_gpu_matches_cpu(rng, cuda_device):
     assert min(out[str(cuda_device)][2].values()) > 0
 
 
+def test_repeatoire_gpu_matches_cpu(rng, cuda_device):
+    """A few-kbp genome with a planted 5-copy family and an inverted copy
+    through Repeatoire (sorted mer list, seed groups, extension waves through
+    the closure, HMM gate): identical families and XMFA on the GPU and CPU
+    paths, every kernel launched on the GPU."""
+    from mauvealigner_tpu_torch.models.repeatoire import (
+        Repeatoire, RepeatoireOptions, write_repeats_xmfa,
+    )
+    from mauvealigner_tpu_torch.genome.sequence import revcomp_ascii
+
+    unit = simulate.random_genome(rng, 300).seq
+    parts = [simulate.random_genome(rng, 500).seq]
+    for i in range(5):
+        copy = unit.copy()
+        copy[rng.integers(0, 300, size=8)] = np.frombuffer(b"ACGT", np.uint8)[
+            rng.integers(0, 4, size=8)]
+        parts += [revcomp_ascii(copy) if i == 2 else copy, simulate.random_genome(rng, 500).seq]
+    g = Genome(np.concatenate(parts), name="reps")
+    out = {}
+    for dev in ("cpu", str(cuda_device)):
+        gotoh_cuda.reset_launches()
+        fams = Repeatoire(RepeatoireOptions(z=9, device=dev)).find_repeats(g)
+        buf = io.StringIO()
+        write_repeats_xmfa(fams, g, buf)
+        out[dev] = (buf.getvalue(), [f.score for f in fams], dict(gotoh_cuda.LAUNCHES))
+    assert out["cpu"][0] == out[str(cuda_device)][0]
+    assert out["cpu"][1] == out[str(cuda_device)][1]
+    assert set(out["cpu"][2].values()) == {0}
+    assert min(out[str(cuda_device)][2].values()) > 0
+
+
+def test_wave_above_255_rows_gpu_matches_cpu(rng, cuda_device):
+    """A 260-member extension job (repeatoire allows 500) through the
+    balanced-plan closure: the last rounds merge f32 count profiles; the
+    alignment on the GPU equals the CPU path's."""
+    from mauvealigner_tpu_torch.models import closure
+
+    unit = rng.integers(0, 4, size=40).astype(np.int8)
+    regs = []
+    for _ in range(260):
+        r = unit[: rng.integers(20, 41)].copy()
+        r[rng.integers(0, len(r), size=3)] = rng.integers(0, 4, size=3)
+        regs.append(r)
+    kw = dict(gap_open=-100.0, gap_extend=-20.0, max_len=4096)
+    out = {}
+    for dev in ("cpu", str(cuda_device)):
+        gotoh_cuda.reset_launches()
+        out[dev] = closure.hierarchical_align_region_groups(
+            [regs], closure.balanced_plan(260), device=dev, **kw)[0]
+    assert np.array_equal(out["cpu"], out[str(cuda_device)])
+    assert gotoh_cuda.LAUNCHES["gotoh_forward_profiles"] > 0
+
+
 POISON = 0xEE
 
 

@@ -123,7 +123,7 @@ def test_emission_decode_same_probabilities_same_posteriors(rng):
     assert np.abs(ref - got).max() <= SAME_INPUT_TOL
 
 
-@pytest.mark.parametrize("mode", ["threshold0", "posterior0"])
+@pytest.mark.parametrize("mode", ["threshold0", "posterior0", "prefix0"])
 def test_bucketed_decode_matches_jax(rng, mode):
     p = _params()
     lt, li = p.log_trans(), np.log([0.5, 0.5])
@@ -131,6 +131,9 @@ def test_bucketed_decode_matches_jax(rng, mode):
     syms[4][100:160] = 0  # a run of matches
     ref = jax_hmm.bucketed_decode(syms, lt, li, mode, emit_table=p.log_emit_table())
     got = hmm.bucketed_decode(syms, lt, li, mode, emit_table=p.log_emit_table(), device="cpu")
+    if mode == "prefix0":
+        assert got == ref and all(type(g) is int for g in got)
+        return
     for r, g in zip(ref, got):
         assert len(r) == len(g)
         if mode == "threshold0":
@@ -140,9 +143,33 @@ def test_bucketed_decode_matches_jax(rng, mode):
 
 
 def test_bucketed_decode_refuses_unported_modes():
-    with pytest.raises(NotImplementedError, match="prefix0"):
-        hmm.bucketed_decode([np.zeros(4, np.uint8)], np.zeros((2, 2)), np.zeros(2), "prefix0",
+    """Every mode of the JAX package is ported now; an unknown one raises."""
+    with pytest.raises(ValueError, match="viterbi"):
+        hmm.bucketed_decode([np.zeros(4, np.uint8)], np.zeros((2, 2)), np.zeros(2), "viterbi",
                             emit_table=np.zeros((2, 4)), device="cpu")
+
+
+@pytest.mark.parametrize("threshold", [0.3, 0.5, 0.9])
+def test_prefix0_counts_match_jax(rng, threshold):
+    """prefix0 on repeatoire-like symbol streams (homologous heads, then
+    unrelated tails) and on float emission rows, at several thresholds."""
+    p = _params()
+    lt, li = p.log_trans(), np.log([0.9, 0.1])
+    syms = []
+    for n in (1, 7, 16, 33, 80, 200, 513):
+        s = rng.integers(0, 4, n).astype(np.uint8)
+        s[: n // 2] = np.where(rng.random(n // 2) < 0.9, 0, 3)
+        syms.append(s)
+    ref = jax_hmm.bucketed_decode(syms, lt, li, "prefix0", threshold=threshold,
+                                  emit_table=p.log_emit_table())
+    got = hmm.bucketed_decode(syms, lt, li, "prefix0", threshold=threshold,
+                              emit_table=p.log_emit_table(), device="cpu")
+    assert got == ref
+    assert len(set(got)) > 2  # prefixes of several lengths
+    emits = [np.asarray(p.log_emit_table()).T[s].astype(np.float32) for s in syms]
+    ref = jax_hmm.bucketed_decode(emits, lt, li, "prefix0", threshold=threshold)
+    got = hmm.bucketed_decode(emits, lt, li, "prefix0", threshold=threshold, device="cpu")
+    assert got == ref
 
 
 def _three_way_intervals(rng):

@@ -202,7 +202,7 @@ def test_cli_outputs_identical(rng, tmp_path, branch):
     paths = _fasta(tmp_path, genomes)
     assert jax_cli(["progressiveMauve", *paths, *flags, "--disable-cache",
                     f"--output={tmp_path}/j.xmfa"]) == 0
-    assert torch_cli(["progressiveMauve", *paths, *flags, "--device=cpu",
+    assert torch_cli(["progressiveMauve", *paths, *flags, "--disable-cache", "--device=cpu",
                       f"--output={tmp_path}/t.xmfa"]) == 0
     for ext in ("", ".backbone", ".bbcols", ".guide_tree"):
         ref = (tmp_path / f"j.xmfa{ext}").read_bytes()
@@ -216,12 +216,13 @@ def test_cli_mums_and_match_input_identical(rng, tmp_path):
     paths = _fasta(tmp_path, _three_way(rng))
     assert jax_cli(["progressiveMauve", *paths, "--seed-weight=9", "--disable-cache", "--mums",
                     f"--output={tmp_path}/j.mums"]) == 0
-    assert torch_cli(["progressiveMauve", *paths, "--seed-weight=9", "--device=cpu", "--mums",
-                      f"--output={tmp_path}/t.mums"]) == 0
+    assert torch_cli(["progressiveMauve", *paths, "--seed-weight=9", "--disable-cache",
+                      "--device=cpu", "--mums", f"--output={tmp_path}/t.mums"]) == 0
     assert (tmp_path / "j.mums").read_bytes() == (tmp_path / "t.mums").read_bytes()
     assert jax_cli(["progressiveMauve", *paths, "--seed-weight=9", "--disable-cache",
                     f"--match-input={tmp_path}/j.mums", f"--output={tmp_path}/j.xmfa"]) == 0
-    assert torch_cli(["progressiveMauve", *paths, "--seed-weight=9", "--device=cpu",
-                      f"--match-input={tmp_path}/j.mums", f"--output={tmp_path}/t.xmfa"]) == 0
+    assert torch_cli(["progressiveMauve", *paths, "--seed-weight=9", "--disable-cache",
+                      "--device=cpu", f"--match-input={tmp_path}/j.mums",
+                      f"--output={tmp_path}/t.xmfa"]) == 0
     got = (tmp_path / "t.xmfa").read_bytes().replace(b"t.xmfa.bbcols", b"j.xmfa.bbcols")
     assert (tmp_path / "j.xmfa").read_bytes() == got
