@@ -1,13 +1,17 @@
 """Chip check of the PyTorch port: builds the CUDA kernels, holds each
-against its plain-torch version on the card, and drives the port's paths on
-the GPU: config 1 (two 1 Mbp genomes, bench.py) through MauveAligner,
-BASELINE config 3 (9 x 250 kbp, scripts/bench_configs.py) through
-ProgressiveMauve (the extant branch of its gate), 9 x 1 Mbp
-enterobacteria-like genomes through ProgressiveMauve (the tree-progressive
-branch), BASELINE config 4 (the 236 kbp planted-family genome,
-scripts/bench_configs.py config4) through Repeatoire cold and warm, and the
-same generator with every spacer 4x as long (926 kbp, bacterial scale)
-through Repeatoire once.  Each run is held to the JAX package's outputs
+against its plain-torch version on the card (at every bucket side 16-4096,
+and both forward kernels above their shared-memory limits, through the
+device slab: profiles at side 8192, codes at 16384), and drives the port's
+paths on the GPU: config 1 (two 1 Mbp genomes, bench.py) through
+MauveAligner, BASELINE config 2 (three 500 kbp genomes with an inversion,
+scripts/bench_configs.py) through the mauveAligner command line with
+islands and backbone, cold and warm, BASELINE config 3 (9 x 250 kbp,
+scripts/bench_configs.py) through ProgressiveMauve (the extant branch of
+its gate), 9 x 1 Mbp enterobacteria-like genomes through ProgressiveMauve
+(the tree-progressive branch), BASELINE config 4 (the 236 kbp
+planted-family genome, scripts/bench_configs.py config4) through
+Repeatoire cold and warm, and the same generator with every spacer 4x as
+long (926 kbp, bacterial scale) through Repeatoire once.  Each run is held to the JAX package's outputs
 recorded in mauvealigner_tpu_torch/data/*_golden.json.
 
 Usage (from the repository root, one NVIDIA GPU):  python3 chip_smoke.py
@@ -17,11 +21,11 @@ problem's live rectangle (dp.live_cell_mask), the only bytes the forward
 kernels write; the traceback kernel is held to the plain traceback on the
 plain decisions and on each forward kernel's decisions with every byte
 outside the live rectangles poisoned (POISON).  After the driven paths,
-config 3's and config 4's cold-run launch lists (gotoh_cuda.LAUNCH_SHAPES)
-are replayed with random contents at the recorded lengths
-(scripts/gotoh_replay.py): each kernel's summed ms, bound and roofline share
-print on the "main path" lines, and the traceback's chain floor beside its
-bound.
+config 2's, config 3's and config 4's cold-run launch lists
+(gotoh_cuda.LAUNCH_SHAPES) are replayed with random contents at the
+recorded lengths (scripts/gotoh_replay.py): each kernel's summed ms, bound
+and roofline share print on the "main path" lines, and the traceback's
+chain floor beside its bound.
 
 Phases print on their own lines; any failure exits non-zero before the
 result line.  The second-to-last line is one JSON object describing each
@@ -29,11 +33,13 @@ kernel; the last line is {"ok": true, "device": {...}}.  Imports nothing of
 JAX or of the JAX package.
 """
 
+import contextlib
 import hashlib
 import io
 import json
 import os
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -45,6 +51,7 @@ from mauvealigner_tpu_torch.models import repeatoire
 from mauvealigner_tpu_torch.models.aligner import AlignerOptions, MauveAligner
 from mauvealigner_tpu_torch.models.progressive import ProgressiveMauve, ProgressiveOptions
 from mauvealigner_tpu_torch.ops import _build, dp, gotoh_cuda
+from mauvealigner_tpu_torch.tools.cli import main as port_cli
 from mauvealigner_tpu_torch.utils import digest, simulate, timing
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -57,6 +64,10 @@ from gotoh_replay import (  # noqa: E402
 DATA = os.path.join(ROOT, "mauvealigner_tpu_torch", "data")
 SIDES = (16, 32, 64, 128, 256, 512, 1024, 2048, 4096)
 TIMED_SIDES = (256, 4096)
+# sides above each forward kernel's shared-memory limit (8192 codes, 4096
+# profiles on an H100): the device-slab path, B = 2, live lengths above
+# the old limits
+LARGE_SIDES = {"gotoh_forward_profiles": 8192, "gotoh_forward_codes": 16384}
 # the TPU kernel has two input modes; each is its own CUDA kernel here
 KERNELS = {
     "gotoh_forward_codes": "mauvealigner_tpu/ops/dp_pallas.py:183",
@@ -196,6 +207,76 @@ def check_kernels(dev) -> dict:
     return stats
 
 
+def check_large_sides(dev) -> dict:
+    """Both forward kernels above their shared-memory limits (the device
+    slab): scores exact, live decision bytes identical, and the traceback
+    kernel on the kernel's decisions equal to the plain traceback on the
+    plain decisions.  Times: the kernel over 3 launches, the plain version
+    and the traceback once each (CUDA events), each beside its bound."""
+    rng = np.random.default_rng(2027)
+    sub = torch.from_numpy(dp.HOXD70.copy()).to(dev)
+    go, ge = dp.DEFAULT_GAP_OPEN, dp.DEFAULT_GAP_EXTEND
+    lib = _build.library()
+    sm_mhz = sm_clock_mhz()
+    out = {}
+    for name, side in LARGE_SIDES.items():
+        lens = (np.array([side - 3, side // 2 + 7], np.int32),
+                np.array([side - 11, 900], np.int32))
+        profiles = name == "gotoh_forward_profiles"
+        slab = lib.gotoh_forward_scratch_bytes(2, side, int(profiles), 0)
+        if slab <= 0:
+            raise SystemExit(f"{name} at side {side} fits shared memory: no slab path to check")
+        if profiles:
+            pa, pb, la_h, lb_h = random_profile_batch(rng, 2, side, lens)
+            x = [torch.from_numpy(pa).to(dev).to(torch.float32),
+                 torch.from_numpy(pb).to(dev).to(torch.float32)]
+            kernel = gotoh_cuda.gotoh_forward_profiles
+            plain = dp.gotoh_forward_profiles_ref
+        else:
+            ca, cb, la_h, lb_h = random_batch(rng, 2, side, lens)
+            x = [torch.from_numpy(ca).to(dev), torch.from_numpy(cb).to(dev)]
+            kernel = gotoh_cuda.gotoh_forward_codes
+            plain = dp.gotoh_forward_codes_ref
+        x += [torch.from_numpy(la_h).to(dev), torch.from_numpy(lb_h).to(dev)]
+        s_k, dec_k = kernel(*x, sub, go, ge)
+        ops_k, cnt_k = gotoh_cuda.gotoh_traceback(dec_k, x[2], x[3])
+        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0.record()
+        s_p, dec_p = plain(*x, sub, go, ge)
+        t1.record()
+        ops_p, cnt_p = dp.gotoh_traceback_ref(dec_p, x[2], x[3])
+        torch.cuda.synchronize()
+        plain_ms = t0.elapsed_time(t1)
+        live = dp.live_cell_mask(x[2], x[3], side, side)
+        err = float((s_k - s_p).abs().max())
+        same_dec = bool(torch.equal(dec_k[live], dec_p[live]))
+        del live, dec_p
+        tb_ok = torch.equal(ops_k, ops_p) and torch.equal(cnt_k, cnt_p)
+        say(f"{name} device slab side={side} B=2 lengths {la_h.tolist()} x {lb_h.tolist()} "
+            f"({slab} slab bytes): scores max|diff|={err}, live dec bytes "
+            f"{'identical' if same_dec else 'DIFFER'}, traceback ops and counts "
+            f"{'equal' if tb_ok else 'DIFFER'}")
+        if not (err == 0.0 and same_dec and tb_ok):
+            raise SystemExit(f"{name} disagrees with its plain version at side {side}")
+        ms = cuda_ms(lambda: kernel(*x, sub, go, ge), 3)
+        bound = forward_bound(name, la_h, lb_h)
+        steps = cnt_k.cpu().numpy()
+        tb_ms = cuda_ms(lambda: gotoh_cuda.gotoh_traceback(dec_k, x[2], x[3]), 3)
+        tb_bound = traceback_bound(steps, side, side)
+        floor = traceback_chain_floor(steps, sm_mhz)
+        say(f"time device slab side={side} B=2: {name} kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, bound {bound[0]:.6f} ms ({bound[1]}), roofline share "
+            f"{bound[0] / ms:.4f}; gotoh_traceback {tb_ms:.4f} ms, bound {tb_bound[0]:.6f} ms, "
+            f"chain floor {floor:.4f} ms ({card_line()})")
+        out[name] = {"side": side, "batch": 2, "max_abs_err": err, "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1],
+                     "slab_bytes": int(slab), "traceback_ms": tb_ms,
+                     "traceback_bound_ms": tb_bound[0], "traceback_chain_floor_ms": floor}
+        del dec_k
+        torch.cuda.empty_cache()
+    return out
+
+
 def mainpath_times(dev, shapes, config: str) -> dict:
     """Replay a run's recorded launches (random contents at the recorded
     lengths, scripts/gotoh_replay.py): per kernel the summed ms, summed
@@ -253,6 +334,51 @@ def config1(dev) -> dict:
         if label == "warm":
             say("per-phase report (warm run):\n" + timing.GLOBAL.report().rstrip())
     say(f"peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+    return runs
+
+
+def config2(dev) -> dict:
+    """BASELINE config 2 (scripts/bench_configs.py config2: three 500 kbp
+    genomes, the second descendant inverted over 150,000-250,000) through
+    the port's mauveAligner command line with islands and backbone at 50
+    (utils/digest.CONFIG2_ARGS), cold and warm, each held to every field of
+    the golden file; every kernel must launch."""
+    genomes = digest.config2_genomes(simulate)
+    golden = load_golden("config2_golden.json", genomes)
+    say("config2 genomes match the golden sha256")
+    runs = {}
+    with tempfile.TemporaryDirectory() as d:
+        digest.write_fasta_files(genomes, d, digest.CONFIG2_SEQS)
+        for label in ("cold", "warm"):
+            timing.GLOBAL.reset()
+            gotoh_cuda.reset_launches()
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            with contextlib.chdir(d):
+                t0 = time.perf_counter()
+                rc = port_cli(["mauveAligner", *digest.CONFIG2_ARGS, f"--device={dev}"])
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+            launches = dict(gotoh_cuda.LAUNCHES)
+            shapes = list(gotoh_cuda.LAUNCH_SHAPES)
+            got = digest.mauve_aligner_digest(d)
+            c = timing.GLOBAL.counters
+            say(f"config2 {label}: {secs:.3f} s, rc {rc}, {json.dumps(got)}, launches {launches}, "
+                f"dp_cells {c.get('dp_cells', 0):.0f}, dp_calls {c.get('dp_calls', 0):.0f}")
+            say("config2 launch shapes (kernel, side, problems): " + ", ".join(
+                f"{s['kernel'].split('_')[-1]} {s['M']} {s['B']}" for s in shapes))
+            say(f"config2 {label} per-phase report:\n" + timing.GLOBAL.report().rstrip())
+            say(f"config2 {label} peak device memory "
+                f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+            if rc != 0:
+                raise SystemExit(f"config2 {label}: mauveAligner returned {rc}")
+            for k in digest.CONFIG2_KEYS:
+                if got[k] != golden[k]:
+                    raise SystemExit(f"config2 {label}: {k} = {got[k]!r}, golden {golden[k]!r}")
+            for k in KERNELS:
+                if launches[k] <= 0:
+                    raise SystemExit(f"config2 {label}: kernel {k} was never launched")
+            runs[label] = {"seconds": secs, "launches": launches, "shapes": shapes}
     return runs
 
 
@@ -413,11 +539,14 @@ def main() -> int:
 
     stats = check_kernels(dev)
     stats["gotoh_forward_profiles"] = check_profile_kernel(dev)
+    large = check_large_sides(dev)
     runs = config1(dev)
+    runs2 = config2(dev)
     runs3 = config3(dev)
     runs_tree = tree_branch(dev)
     runs4 = config4(dev)
     runs4_big = config4_big(dev)
+    mainpath2 = mainpath_times(dev, runs2["cold"]["shapes"], "2")
     mainpath = mainpath_times(dev, runs3["cold"]["shapes"], "3")
     mainpath4 = mainpath_times(dev, runs4["cold"]["shapes"], "4")
 
@@ -435,6 +564,7 @@ def main() -> int:
             "launches": runs3["cold"]["launches"][name],
             "launches_by_path": {
                 "config1": runs["cold"]["launches"][name],
+                "config2": runs2["cold"]["launches"][name],
                 "config3": runs3["cold"]["launches"][name],
                 "tree": runs_tree["launches"][name],
                 "config4": runs4["cold"]["launches"][name],
@@ -455,11 +585,17 @@ def main() -> int:
             "mainpath_ms": m["ms"],
             "mainpath_bound_ms": m["bound_ms"],
             "mainpath_launches": m["launches"],
-            # config 4's cold-run launch list replayed the same way
+            # config 2's and config 4's cold-run launch lists replayed the same way
+            "mainpath_config2_ms": mainpath2[name]["ms"],
+            "mainpath_config2_bound_ms": mainpath2[name]["bound_ms"],
+            "mainpath_config2_launches": mainpath2[name]["launches"],
             "mainpath_config4_ms": mainpath4[name]["ms"],
             "mainpath_config4_bound_ms": mainpath4[name]["bound_ms"],
             "mainpath_config4_launches": mainpath4[name]["launches"],
         })
+        if name in large:
+            # the largest side checked: above shared memory, the device slab
+            kernels[-1]["large_side"] = large[name]
         if name == "gotoh_traceback":
             # the longest walk's dependent steps (scripts/gotoh_replay.py),
             # at the largest timed side and summed over config 3's list

@@ -76,7 +76,7 @@ constexpr int kLag = 2 + 31 / kChunk;
 //
 // Inputs are staged once, their loads issued together: the lengths, the B
 // side (N code bytes, or N x 5 floats of pB, normalized when asked) into
-// shared memory with kPad columns of padding either side, and the first
+// the problem's buffer with kPad columns of padding either side, and the first
 // strip's A-side rows; each later strip's A rows are loaded one strip
 // ahead.  The lane's A-side datum (its code's row of the 6 x 6 table, or
 // q_i = pA[i-1] . SUBST) lives in registers.
@@ -91,6 +91,20 @@ constexpr int kLag = 2 + 31 / kChunk;
 // chain of dependent steps does (2 kChunk steps of lag per strip).  The
 // byte stores alone take about a third of the time at side 4096 (PERF.md);
 // the layout of dec, fixed by its callers, allows no wider store.
+//
+// Sides above shared memory.  A problem's four bottom-row buffers and its
+// staged B side (problem_bytes) live in the block's shared memory when they
+// fit the opt-in limit (the codes kernel up to side 8192, the profile kernel
+// up to 4096), else in a slab of device memory the caller allocates, one
+// problem_bytes row per problem (forward_scratch).  The body is the same:
+// only where buf and the staged columns point changes (a template flag,
+// kSlab).  The strip lag holds on either: every phase ends in
+// __syncthreads (several warps) or __syncwarp (one warp), which order
+// global as well as shared writes among the threads that meet there, so
+// strip k+1 reads row 32k+31 only after strip k wrote it, and strip k+2
+// overwrites it only after strip k+1 read it.  The slab's rows are read and
+// written through L1 and L2 like any global data; this path is for the rare
+// sides above the limit and is not tuned.
 struct Lane {
     float hl, el;     // H and E of the lane's row, previous column
     float h_out, f_out;  // H and F of the cell computed last step
@@ -351,17 +365,32 @@ __device__ __forceinline__ Placement place(int warps) {
 
 __host__ __device__ __forceinline__ size_t round16(size_t x) { return (x + 15) & ~(size_t)15; }
 
-// Shared memory of one problem: the four bottom-row buffers, then the staged
+// The buffer of one problem: the four bottom-row buffers, then the staged
 // B side of N + 2 kPad columns (code bytes, or 5 floats each), a multiple of
 // 16 bytes.
 __host__ __device__ __forceinline__ size_t problem_bytes(int N, size_t column_bytes) {
-    return round16(4 * sizeof(float) * (size_t)buffer_len(N) + column_bytes * (N + 2 * kPad));
+    return round16(4 * sizeof(float) * (size_t)buffer_len(N) + column_bytes * ((size_t)N + 2 * kPad));
+}
+
+// Where problem b's buffer lies: its row of the device slab (kSlab), else
+// slot `slot` of the block's shared memory.  A compile-time choice, so that
+// the shared-memory instance addresses buf as shared memory (a pointer that
+// may point to either space compiles to generic loads and stores, which
+// timed slower).
+template <bool kSlab>
+__device__ __forceinline__ unsigned char* problem_buffer(
+    unsigned char* smem, unsigned char* scratch, int b, int slot, size_t bytes)
+{
+    if constexpr (kSlab) return scratch + (size_t)b * bytes;
+    else return smem + (size_t)slot * bytes;
 }
 
 // Both forward kernels: at most kMaxThreads threads, and one block per SM
 // is enough, so ptxas may give a thread up to 128 registers (bounded by
 // the block size alone it held the profile kernel to 64, which timed
-// slower); -Xptxas -v shows no spills.
+// slower); -Xptxas -v shows no spills.  kSlab: the problem buffers lie in
+// `scratch` (device memory) instead of shared memory.
+template <bool kSlab>
 __global__ void __launch_bounds__(kMaxThreads, 1) gotoh_forward_codes_kernel(
     const uint8_t* __restrict__ codes_a,  // [B, M], codes > 4 are padding
     const uint8_t* __restrict__ codes_b,  // [B, N]
@@ -370,7 +399,8 @@ __global__ void __launch_bounds__(kMaxThreads, 1) gotoh_forward_codes_kernel(
     const float* __restrict__ subst,      // [5, 5]
     float go_ge, float ge, int B, int M, int N, int warps,
     float* __restrict__ scores,           // [B]
-    uint8_t* __restrict__ dec)            // [B, M+N+1, M+1]
+    uint8_t* __restrict__ dec,            // [B, M+N+1, M+1]
+    unsigned char* scratch)               // kSlab: [B, problem_bytes]
 {
     extern __shared__ __align__(16) unsigned char smem[];
     __shared__ float sub6[36];
@@ -380,7 +410,8 @@ __global__ void __launch_bounds__(kMaxThreads, 1) gotoh_forward_codes_kernel(
     }
     const Placement pl = place(warps);
     const bool active = pl.b < B;
-    float* buf = reinterpret_cast<float*>(smem + pl.slot * problem_bytes(N, 1));
+    float* buf = reinterpret_cast<float*>(
+        problem_buffer<kSlab>(smem, scratch, active ? pl.b : 0, pl.slot, problem_bytes(N, 1)));
     uint8_t* cb = reinterpret_cast<uint8_t*>(buf + 4 * buffer_len(N));
     // lengths, staged columns and first rows load together (no load waits
     // on another)
@@ -402,9 +433,10 @@ __global__ void __launch_bounds__(kMaxThreads, 1) gotoh_forward_codes_kernel(
 
 // gotoh_forward_profiles_kernel: the profile input of the same TPU kernel
 // (the JAX package's count-profile DP, dp.align_profiles_batch_async).
-// Shared memory per problem: the bottom-row buffers plus pB staged once
+// Buffer per problem: the bottom-row buffers plus pB staged once
 // (normalized when asked), 16 x (N+33) + 20 x (N+64) bytes: 149,264 at
-// N = 4096.
+// N = 4096 (shared memory), 296,720 at 8192 (the device slab).
+template <bool kSlab>
 __global__ void __launch_bounds__(kMaxThreads, 1) gotoh_forward_profiles_kernel(
     const float* __restrict__ prof_a,     // [B, M, 5], zero rows past lens_a
     const float* __restrict__ prof_b,     // [B, N, 5]
@@ -413,12 +445,14 @@ __global__ void __launch_bounds__(kMaxThreads, 1) gotoh_forward_profiles_kernel(
     const float* __restrict__ subst,      // [5, 5]
     float go_ge, float ge, int B, int M, int N, int normalize, int warps,
     float* __restrict__ scores,           // [B]
-    uint8_t* __restrict__ dec)            // [B, M+N+1, M+1]
+    uint8_t* __restrict__ dec,            // [B, M+N+1, M+1]
+    unsigned char* scratch)               // kSlab: [B, problem_bytes]
 {
     extern __shared__ __align__(16) unsigned char smem[];
     const Placement pl = place(warps);
     const bool active = pl.b < B;
-    float* buf = reinterpret_cast<float*>(smem + pl.slot * problem_bytes(N, 5 * sizeof(float)));
+    float* buf = reinterpret_cast<float*>(problem_buffer<kSlab>(
+        smem, scratch, active ? pl.b : 0, pl.slot, problem_bytes(N, 5 * sizeof(float))));
     float* pb = buf + 4 * buffer_len(N);
     // lengths, staged columns and first rows load together (no load waits
     // on another)
@@ -429,6 +463,10 @@ __global__ void __launch_bounds__(kMaxThreads, 1) gotoh_forward_profiles_kernel(
     const ProfileScore::Raw raw = score.raw(32 * pl.w + (threadIdx.x & 31), active ? M : 0);
     if (active) {
         const float* src = prof_b + (size_t)pl.b * N * 5;
+        // four rows' loads in flight a thread: left to itself, nvcc unrolled
+        // this loop twice in the template and four times before it, and the
+        // many small problems of the main path timed 4% slower
+#pragma unroll 4
         for (int x = pl.tid; x < N; x += 32 * pl.warps) {
             float p[5];
             load_profile_row(src + (size_t)x * 5, normalize != 0, p);
@@ -494,8 +532,12 @@ __global__ void __launch_bounds__(kMaxThreads, 1) gotoh_forward_profiles_kernel(
 //   the warp that issues the copies is the warp that walks.
 // - Ops go to a ring in shared memory (lane 0, a byte a step) and out to
 //   device memory 32 bytes a warp store at each tile; the OP_NONE tail is
-//   written by the whole warp, 16 bytes a lane where aligned.  A problem's
-//   offsets into dec and ops are 64-bit; offsets inside its slab fit 32.
+//   written by the whole warp, 16 bytes a lane where aligned.  Offsets into
+//   dec and ops are 64-bit.  Offsets inside a problem's slab are of type
+//   Off: int while the slab holds under 2^31 bytes, long long above (side
+//   32768 and up); 64-bit arithmetic in the tile loads timed 7% slower on
+//   config 3's launch list, so the launcher picks the narrow type where it
+//   fits.
 
 #ifndef CUDA_CPU_EMULATION
 // Every read of dec goes through these two: 16 bytes of a problem's slab
@@ -531,11 +573,10 @@ struct TbTile {
 
 // The warp loads the tile anchored at (d0, i0) into buf and waits for it:
 // lane l takes chunk l % kChunks of diagonals l / kChunks, l / kChunks +
-// 32 / kChunks, ...  Slab offsets fit in 32 bits (at most (16384 + 1) x
-// 8193 bytes a problem).
-template <int R>
+// 32 / kChunks, ...  Slab offsets are of type Off (n = (M+N+1)(M+1) bytes).
+template <int R, class Off>
 __device__ __forceinline__ TbTile tb_load_tile(
-    uint8_t* buf, const uint8_t* slab, int n, int W, int K, int d0, int i0)
+    uint8_t* buf, const uint8_t* slab, Off n, int W, int K, int d0, int i0)
 {
     using G = TbGeom<R>;
     constexpr int kRowsAtOnce = 32 / G::kChunks;
@@ -544,7 +585,7 @@ __device__ __forceinline__ TbTile tb_load_tile(
     // when it starts there
     tile.rows = d0 >= 0 ? min(G::kDiags, d0 + 1) : G::kDiags;
     const unsigned addr = (unsigned)(uintptr_t)slab;  // its low 4 bits set the skews
-    const int lin0 = d0 * W + i0 - (R - 1);  // the anchor diagonal's lowest row
+    const Off lin0 = (Off)d0 * W + i0 - (R - 1);  // the anchor diagonal's lowest row
     tile.base = (int)((addr + lin0) & 15);
     const int lane = threadIdx.x & 31;
     const unsigned below = d0 < 0 ? dec_byte(slab, 0) * 0x01010101u : 0u;
@@ -552,9 +593,9 @@ __device__ __forceinline__ TbTile tb_load_tile(
         const int ch = lane % G::kChunks;
 #pragma unroll 2
         for (int r = lane / G::kChunks; r < tile.rows; r += kRowsAtOnce) {
-            const int lin = lin0 - r * W;
+            const Off lin = lin0 - (Off)r * W;
             const int skew = (int)((addr + lin) & 15);
-            const int src = lin - skew + 16 * ch;
+            const Off src = lin - skew + 16 * ch;
             uint8_t* dst = buf + tile.base + r * K - skew + 16 * ch;
             if (d0 < 0) {
                 *reinterpret_cast<uint4*>(dst) = make_uint4(below, below, below, below);
@@ -562,7 +603,7 @@ __device__ __forceinline__ TbTile tb_load_tile(
                 dec_copy16(dst, slab, src);
             } else {
 #pragma unroll
-                for (int e = 0; e < 16; ++e) dst[e] = dec_byte(slab, min(max(src + e, 0), n - 1));
+                for (int e = 0; e < 16; ++e) dst[e] = dec_byte(slab, min(max(src + e, (Off)0), n - 1));
             }
         }
     }
@@ -648,7 +689,7 @@ __device__ __forceinline__ void tb_walk(TbWalk& w, uint8_t* ring, int L, unsigne
     while (w.live(L) && w.r < rows && w.q >= 0) tb_step<kRing>(w, ring, deltas, k1, lane0);
 }
 
-template <int R>
+template <int R, class Off>
 __global__ void __launch_bounds__(256) gotoh_traceback_kernel(
     const uint8_t* __restrict__ dec,     // [B, M+N+1, M+1]
     const int32_t* __restrict__ lens_a,  // [B]
@@ -667,7 +708,7 @@ __global__ void __launch_bounds__(256) gotoh_traceback_kernel(
     const int L = M + N;
     const int K = G::kPitch - (W & 15);
     const unsigned deltas = (unsigned)K | 1u << 16 | (unsigned)K << 24;  // c = 0, 1, 2, 3
-    const int n = (M + N + 1) * W;
+    const Off n = (Off)(M + N + 1) * W;
     const uint8_t* slab = dec + (size_t)b * (size_t)n;
     uint8_t* ob = ops + (size_t)b * (size_t)L;
     // the tile and the ring, made from smem by arithmetic only so that the
@@ -678,7 +719,7 @@ __global__ void __launch_bounds__(256) gotoh_traceback_kernel(
     w.force();
     int flushed = 0;
     while (w.live(L)) {
-        const TbTile tile = tb_load_tile<R>(buf, slab, n, W, K, w.i + w.j, w.i);
+        const TbTile tile = tb_load_tile<R, Off>(buf, slab, n, W, K, w.i + w.j, w.i);
         w.r = 0;
         w.q = R - 1;
         w.at = buf + tile.base + (R - 1);
@@ -708,11 +749,14 @@ int tb_launch(const void* dec, const void* lens_a, const void* lens_b, int B, in
     if (per_block <= 0) per_block = 1;
     if (per_block > G::kMaxPerBlock) per_block = G::kMaxPerBlock;
     const int smem = per_block * G::kWarpBytes;
+    // slab offsets in 32 bits while a slab holds under 2^31 bytes
+    const bool wide = (long long)(M + N + 1) * (M + 1) > 0x7fffffffLL;
+    const auto kernel = wide ? gotoh_traceback_kernel<R, long long> : gotoh_traceback_kernel<R, int>;
     cudaError_t err = cudaFuncSetAttribute(
-        gotoh_traceback_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
     const int blocks = (B + per_block - 1) / per_block;
-    gotoh_traceback_kernel<R><<<blocks, 32 * per_block, smem, stream>>>(
+    kernel<<<blocks, 32 * per_block, smem, stream>>>(
         (const uint8_t*)dec, (const int32_t*)lens_a, (const int32_t*)lens_b, B, M, N,
         (uint8_t*)ops, (int32_t*)counts);
     return (int)cudaGetLastError();
@@ -721,20 +765,21 @@ int tb_launch(const void* dec, const void* lens_a, const void* lens_b, int B, in
 // Block shape of a forward launch: warps per problem (the caller's, or by
 // side: 1 up to 32, 4 up to 256, 8 at 512, 16 above) and, with one warp
 // per problem, problems per block, as many as shared memory allows up to
-// 4.
+// 4.  per_problem: the dynamic shared memory of one problem, 0 when its
+// buffer lies in the device slab.
 struct Shape {
     int warps, per_block, threads, blocks;
     size_t smem;
 };
 
-Shape forward_shape(int B, int M, size_t per_problem, int warps) {
+Shape forward_shape(int B, int M, size_t per_problem, int warps, long long smem_limit) {
     if (warps <= 0) warps = (M <= 32) ? 1 : (M <= 256 ? 4 : (M <= 512 ? 8 : kMaxWarps));
     if (warps > kMaxWarps) warps = kMaxWarps;
     Shape s;
     s.warps = warps;
     s.per_block = 1;
     if (warps == 1) {
-        const size_t cap = 200 * 1024;
+        const size_t cap = smem_limit < 200 * 1024 ? (size_t)smem_limit : (size_t)200 * 1024;
         s.per_block = 4;
         while (s.per_block > 1 && s.per_block * per_problem > cap) --s.per_block;
     }
@@ -744,40 +789,91 @@ Shape forward_shape(int B, int M, size_t per_problem, int warps) {
     return s;
 }
 
+// Bytes a forward kernel's block can hold in dynamic shared memory: the
+// caller's limit, or (smem_limit <= 0) the device's opt-in limit less room
+// for the kernels' static shared memory (the codes kernel's 144-byte table).
+constexpr int kStaticSmemReserve = 1024;
+
+long long smem_budget(long long smem_limit) {
+    if (smem_limit > 0) return smem_limit;
+    int dev = 0, optin = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+    if (cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) != cudaSuccess)
+        return 0;
+    return (long long)optin - kStaticSmemReserve;
+}
+
+// Bytes of device slab a forward launch needs: 0 when a problem's buffer
+// fits shared memory, else B rows of problem_bytes.
+long long forward_scratch(int B, int N, size_t column_bytes, long long smem_limit) {
+    const size_t per = problem_bytes(N, column_bytes);
+    return (long long)per > smem_budget(smem_limit) ? (long long)B * (long long)per : 0;
+}
+
+// One forward launch: plans it and hands `launch` the kernel instance (the
+// shared-memory one, or the slab one when a problem's buffer does not fit
+// the block), the block shape and the slab (null for shared memory).
+template <class Kernel, class Launch>
+int forward_launch(Kernel shared_kernel, Kernel slab_kernel, int B, int M, int N,
+                   size_t column_bytes, int warps, long long smem_limit, void* scratch,
+                   Launch launch)
+{
+    const long long budget = smem_budget(smem_limit);
+    if (budget <= 0) return (int)cudaErrorInvalidValue;
+    const bool slab = forward_scratch(B, N, column_bytes, budget) > 0;
+    if (slab && scratch == nullptr) return (int)cudaErrorInvalidValue;
+    const Shape s = forward_shape(B, M, slab ? 0 : problem_bytes(N, column_bytes), warps, budget);
+    const Kernel kernel = slab ? slab_kernel : shared_kernel;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)s.smem);
+    if (err != cudaSuccess) return (int)err;
+    launch(kernel, s, slab ? (unsigned char*)scratch : nullptr);
+    return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
+// Bytes of device slab the caller allocates for a forward launch (profiles:
+// 0 codes, 1 count profiles), 0 when none is needed.  smem_limit as for the
+// launchers.
+long long gotoh_forward_scratch_bytes(int B, int N, int profiles, long long smem_limit) {
+    return forward_scratch(B, N, profiles ? 5 * sizeof(float) : 1, smem_limit);
+}
+
+// smem_limit: the dynamic shared memory a block may use, 0 for the
+// device's opt-in limit; scratch: gotoh_forward_scratch_bytes of device
+// memory, or null when that is 0.
 int gotoh_forward_codes_launch(
     const void* codes_a, const void* codes_b, const void* lens_a, const void* lens_b,
     const void* subst, float go_ge, float ge, int B, int M, int N, int warps,
-    void* scores, void* dec, void* stream)
+    long long smem_limit, void* scratch, void* scores, void* dec, void* stream)
 {
-    const Shape s = forward_shape(B, M, problem_bytes(N, 1), warps);
-    cudaError_t err = cudaFuncSetAttribute(
-        gotoh_forward_codes_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)s.smem);
-    if (err != cudaSuccess) return (int)err;
-    gotoh_forward_codes_kernel<<<s.blocks, s.threads, s.smem, (cudaStream_t)stream>>>(
-        (const uint8_t*)codes_a, (const uint8_t*)codes_b, (const int32_t*)lens_a,
-        (const int32_t*)lens_b, (const float*)subst, go_ge, ge, B, M, N, s.warps,
-        (float*)scores, (uint8_t*)dec);
-    return (int)cudaGetLastError();
+    return forward_launch(
+        gotoh_forward_codes_kernel<false>, gotoh_forward_codes_kernel<true>, B, M, N, 1, warps,
+        smem_limit, scratch, [&](auto kernel, const Shape& s, unsigned char* slab) {
+            kernel<<<s.blocks, s.threads, s.smem, (cudaStream_t)stream>>>(
+                (const uint8_t*)codes_a, (const uint8_t*)codes_b, (const int32_t*)lens_a,
+                (const int32_t*)lens_b, (const float*)subst, go_ge, ge, B, M, N, s.warps,
+                (float*)scores, (uint8_t*)dec, slab);
+        });
 }
 
 int gotoh_forward_profiles_launch(
     const void* prof_a, const void* prof_b, const void* lens_a, const void* lens_b,
     const void* subst, float go_ge, float ge, int B, int M, int N, int normalize, int warps,
-    void* scores, void* dec, void* stream)
+    long long smem_limit, void* scratch, void* scores, void* dec, void* stream)
 {
-    const Shape s = forward_shape(B, M, problem_bytes(N, 5 * sizeof(float)), warps);
-    cudaError_t err = cudaFuncSetAttribute(
-        gotoh_forward_profiles_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)s.smem);
-    if (err != cudaSuccess) return (int)err;
-    gotoh_forward_profiles_kernel<<<s.blocks, s.threads, s.smem, (cudaStream_t)stream>>>(
-        (const float*)prof_a, (const float*)prof_b, (const int32_t*)lens_a,
-        (const int32_t*)lens_b, (const float*)subst, go_ge, ge, B, M, N, normalize, s.warps,
-        (float*)scores, (uint8_t*)dec);
-    return (int)cudaGetLastError();
+    return forward_launch(
+        gotoh_forward_profiles_kernel<false>, gotoh_forward_profiles_kernel<true>, B, M, N,
+        5 * sizeof(float), warps, smem_limit, scratch,
+        [&](auto kernel, const Shape& s, unsigned char* slab) {
+            kernel<<<s.blocks, s.threads, s.smem, (cudaStream_t)stream>>>(
+                (const float*)prof_a, (const float*)prof_b, (const int32_t*)lens_a,
+                (const int32_t*)lens_b, (const float*)subst, go_ge, ge, B, M, N, normalize,
+                s.warps, (float*)scores, (uint8_t*)dec, slab);
+        });
 }
 
 // per_block: problems (warps) a block, 0 for the default of 1 (1, 2 and 4

@@ -75,7 +75,7 @@ def aligner_options(o, device) -> AlignerOptions:
     counterpart and raises, closure_genomes are converted, subst is copied
     as float32."""
     if getattr(o, "mesh", None) is not None:
-        raise NotImplementedError("mesh-sharded anchoring is slice 5 of the port")
+        raise NotImplementedError("mesh-sharded anchoring is not ported yet (ROADMAP A6)")
     kw = {}
     for f in dataclasses.fields(AlignerOptions):
         if f.name == "device" or not hasattr(o, f.name):
@@ -92,7 +92,7 @@ def progressive_options(o, device) -> ProgressiveOptions:
     """The JAX package's ProgressiveOptions on `device`; a mesh has no
     counterpart and raises, subst is copied as float32."""
     if getattr(o, "mesh", None) is not None:
-        raise NotImplementedError("mesh-sharded alignment is slice 5 of the port")
+        raise NotImplementedError("mesh-sharded alignment is not ported yet (ROADMAP A6)")
     kw = {}
     for f in dataclasses.fields(ProgressiveOptions):
         if f.name == "device" or not hasattr(o, f.name):

@@ -161,7 +161,7 @@ class ProgressiveOptions:
     # divergence-tail fix, default ON.
     tree_prune_private: bool = True
     tree_prune_max_run: int = 20
-    # multi-device runs: no counterpart in the port yet (slice 5); anything
+    # multi-device runs: no counterpart in the port yet (ROADMAP A6); anything
     # but None raises
     mesh: Optional[object] = None
     # mer-space subsample (1/mod of windows) for the initial N-way search
@@ -189,7 +189,7 @@ class ProgressiveMauve:
     def __init__(self, options: Optional[ProgressiveOptions] = None):
         self.options = options or ProgressiveOptions()
         if self.options.mesh is not None:
-            raise NotImplementedError("mesh-sharded alignment is slice 5 of the port")
+            raise NotImplementedError("mesh-sharded alignment is not ported yet (ROADMAP A6)")
         self.device = resolve_device(self.options.device)
 
     def _seed_rank(self) -> int:

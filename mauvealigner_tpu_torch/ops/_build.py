@@ -74,10 +74,13 @@ def _compile(so: str) -> None:
 
 
 def _bind(lib: ctypes.CDLL) -> None:
-    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.gotoh_forward_codes_launch.argtypes = [P, P, P, P, P, F, F, I, I, I, I, P, P, P]
+    P, I, F, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+    lib.gotoh_forward_scratch_bytes.argtypes = [I, I, I, LL]
+    lib.gotoh_forward_scratch_bytes.restype = LL
+    lib.gotoh_forward_codes_launch.argtypes = [P, P, P, P, P, F, F, I, I, I, I, LL, P, P, P, P]
     lib.gotoh_forward_codes_launch.restype = I
-    lib.gotoh_forward_profiles_launch.argtypes = [P, P, P, P, P, F, F, I, I, I, I, I, P, P, P]
+    lib.gotoh_forward_profiles_launch.argtypes = [P, P, P, P, P, F, F, I, I, I, I, I, LL, P, P,
+                                                  P, P]
     lib.gotoh_forward_profiles_launch.restype = I
     lib.gotoh_traceback_launch.argtypes = [P, P, P, I, I, I, I, P, P, P]
     lib.gotoh_traceback_launch.restype = I

@@ -462,8 +462,10 @@ DEFAULT_BUCKETS = (16, 32, 64, 128, 256, 512, 1024, 2048)
 
 
 def dec_bytes(M: int, N: int) -> int:
-    """Device bytes per problem of an M x N launch: the decision array is
-    the only per-problem buffer the kernels keep."""
+    """Device bytes per problem of an M x N launch: the decision array.
+    Above a block's shared memory the forward kernels also keep a slab row
+    of bottom-row buffers and staged B side per problem (279,120 bytes at
+    side 16384 against 536,920,065 of decisions), which this leaves out."""
     return (M + N + 1) * (M + 1)
 
 

@@ -16,7 +16,10 @@ lengths they hold on the host: a replayable record of a run's launches.
 
 The forward kernels write only the live rectangle of each problem
 (dp.live_cell_mask); the other bytes of `dec` are left as torch.empty gives
-them.
+them.  Any side runs: where a problem's row buffers and staged B side do
+not fit a block's shared memory (codes above side 8192, profiles above
+4096 on an H100), the wrapper allocates a device slab for them
+(gotoh_forward_scratch_bytes) and the same kernel keeps them there.
 """
 
 from __future__ import annotations
@@ -27,14 +30,6 @@ from typing import Tuple
 import torch
 
 from mauvealigner_tpu_torch.ops import dp
-
-# the largest DP side whose bottom-row buffers and staged B codes
-# (16 x (side + 33) + side + 64 bytes: 139,856 at 8192) fit a Hopper block's
-# 227 KB of shared memory; larger sides raise
-MAX_SIDE = 8192
-# the profile kernel stages pB (20 bytes a column) instead:
-# 16 x 4129 + 20 x 4160 = 149,264 bytes fits, the next bucket does not
-PROFILE_MAX_SIDE = 4096
 
 LAUNCHES = {"gotoh_forward_codes": 0, "gotoh_forward_profiles": 0, "gotoh_traceback": 0}
 # one dict per forward call of dp.align_*_batch_async: kernel, M, N, B,
@@ -82,6 +77,16 @@ def _kernel_gaps(gap_open: float, gap_extend: float) -> Tuple[float, float]:
     return go_ge, ge
 
 
+def _slab(lib, B: int, N: int, profiles: bool, dev):
+    """(the device slab a forward launch needs, its pointer), or (None, a
+    null pointer) when the problems fit shared memory."""
+    nbytes = lib.gotoh_forward_scratch_bytes(B, N, int(profiles), 0)
+    if not nbytes:
+        return None, ctypes.c_void_p(None)
+    slab = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    return slab, _ptr(slab)
+
+
 def gotoh_forward_codes(
     codes_a: torch.Tensor,  # uint8 [B, M], codes > 4 are padding
     codes_b: torch.Tensor,  # uint8 [B, N]
@@ -107,11 +112,6 @@ def gotoh_forward_codes(
     _check(lens_a, "lens_a", torch.int32, (B,), dev)
     _check(lens_b, "lens_b", torch.int32, (B,), dev)
     _check(subst, "subst", torch.float32, (5, 5), dev)
-    if M > MAX_SIDE:
-        raise ValueError(
-            f"DP side {M} exceeds the CUDA kernel's shared-memory limit of "
-            f"{MAX_SIDE} (lower --max-gapped-aligner-length)"
-        )
     scores = torch.empty(B, dtype=torch.float32, device=dev)
     dec = torch.empty((B, M + N + 1, M + 1), dtype=torch.uint8, device=dev)
     if B == 0:
@@ -120,9 +120,10 @@ def gotoh_forward_codes(
 
     lib = _build.library()
     go_ge, ge = _kernel_gaps(gap_open, gap_extend)
+    slab, slab_ptr = _slab(lib, B, N, False, dev)  # held until the launch is queued
     err = lib.gotoh_forward_codes_launch(
         _ptr(codes_a), _ptr(codes_b), _ptr(lens_a), _ptr(lens_b), _ptr(subst),
-        go_ge, ge, B, M, N, 0, _ptr(scores), _ptr(dec),
+        go_ge, ge, B, M, N, 0, 0, slab_ptr, _ptr(scores), _ptr(dec),
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
     )
     _raise_on_error(lib, err, "gotoh_forward_codes")
@@ -157,11 +158,6 @@ def gotoh_forward_profiles(
     _check(lens_a, "lens_a", torch.int32, (B,), dev)
     _check(lens_b, "lens_b", torch.int32, (B,), dev)
     _check(subst, "subst", torch.float32, (5, 5), dev)
-    if max(M, N) > PROFILE_MAX_SIDE:
-        raise ValueError(
-            f"profile DP side {max(M, N)} exceeds the CUDA kernel's shared-memory "
-            f"limit of {PROFILE_MAX_SIDE} (lower --max-gapped-aligner-length)"
-        )
     scores = torch.empty(B, dtype=torch.float32, device=dev)
     dec = torch.empty((B, M + N + 1, M + 1), dtype=torch.uint8, device=dev)
     if B == 0:
@@ -170,9 +166,10 @@ def gotoh_forward_profiles(
 
     lib = _build.library()
     go_ge, ge = _kernel_gaps(gap_open, gap_extend)
+    slab, slab_ptr = _slab(lib, B, N, True, dev)  # held until the launch is queued
     err = lib.gotoh_forward_profiles_launch(
         _ptr(prof_a), _ptr(prof_b), _ptr(lens_a), _ptr(lens_b), _ptr(subst),
-        go_ge, ge, B, M, N, int(bool(normalize)), 0, _ptr(scores), _ptr(dec),
+        go_ge, ge, B, M, N, int(bool(normalize)), 0, 0, slab_ptr, _ptr(scores), _ptr(dec),
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
     )
     _raise_on_error(lib, err, "gotoh_forward_profiles")

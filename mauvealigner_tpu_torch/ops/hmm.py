@@ -226,7 +226,7 @@ def bucketed_decode(
     li = torch.as_tensor(np.asarray(log_init, np.float64), device=device)
     S = int(li.shape[0])
     if S != 2:
-        raise NotImplementedError("only the 2-state HMM is ported (ROADMAP Queue B, B12)")
+        raise NotImplementedError("only the 2-state HMM is ported (ROADMAP Queue B, B2)")
     tab = None
     if emit_table is not None:
         tab = torch.as_tensor(np.ascontiguousarray(np.asarray(emit_table, np.float32).T), device=device)

@@ -297,20 +297,29 @@ def _forced_forward(name, x, sub, go, ge, normalize, warps, dev):
     dec = torch.empty((B, M + N + 1, M + 1), dtype=torch.uint8, device=dev)
     p = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
     stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+    slab = _forced_slab(lib, name, B, N, dev)
+    scratch = None if slab is None else p(slab)
 
     def fwd():
         if name == "gotoh_forward_codes":
             err = lib.gotoh_forward_codes_launch(
-                *(p(t) for t in x), p(sub), go_ge, gev, B, M, N, warps, p(scores), p(dec), stream)
+                *(p(t) for t in x), p(sub), go_ge, gev, B, M, N, warps, 0, scratch, p(scores),
+                p(dec), stream)
         else:
             err = lib.gotoh_forward_profiles_launch(
-                *(p(t) for t in x), p(sub), go_ge, gev, B, M, N, int(normalize), warps,
-                p(scores), p(dec), stream)
+                *(p(t) for t in x), p(sub), go_ge, gev, B, M, N, int(normalize), warps, 0,
+                scratch, p(scores), p(dec), stream)
         if err:
             raise RuntimeError(f"{name} launch with {warps} warps failed: CUDA error {err}")
         return scores, dec
 
     return fwd
+
+
+def _forced_slab(lib, name, B, N, dev):
+    """The device slab a forced launch needs above shared memory, or None."""
+    nbytes = lib.gotoh_forward_scratch_bytes(B, N, int(name == "gotoh_forward_profiles"), 0)
+    return torch.empty(nbytes, dtype=torch.uint8, device=dev) if nbytes else None
 
 
 def time_sides(gotoh_cuda, dev, per_block: int, sm_mhz: float, label: str, card: str) -> None:

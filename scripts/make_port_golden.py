@@ -7,6 +7,14 @@ mauvealigner_tpu_torch/data/, which chip_smoke.py holds the port to:
         1% apart, seed 37): the sha256 of both genomes' code arrays, the
         LCB / anchor / aligned-column counts and the sha256 of the XMFA
         text (seconds);
+  2     config2_golden.json: BASELINE config 2 as
+        scripts/bench_configs.py builds it (a 500 kbp ancestor from seed 37,
+        descendants at sub 0.01 and 0.02 with indel 0.001, the second
+        inverted over 150,000-250,000), through the mauveAligner command
+        line with islands and backbone at 50 (utils/digest.CONFIG2_ARGS):
+        genome sha256, the LCB, anchor, island and backbone counts and the
+        sha256 of the XMFA, island, backbone, identity-matrix,
+        permutation-matrix and match-list files (about a minute);
   3     config3_golden.json: BASELINE config 3 as
         scripts/bench_configs.py builds it (9 x 250 kbp, seed 37, sub 0.02,
         indel 0.001), default ProgressiveOptions: genome sha256, the gate
@@ -26,16 +34,18 @@ mauvealigner_tpu_torch/data/, which chip_smoke.py holds the port to:
   4big  config4_big_golden.json: the same at bacterial scale, every spacer
         4x as long (planted_repeats(4), 926 kbp; about 80 s).
 
-Usage:  JAX_PLATFORMS=cpu python scripts/make_port_golden.py [1] [3] [tree] [4] [4big]
-        (no argument: all five)
+Usage:  JAX_PLATFORMS=cpu python scripts/make_port_golden.py [1] [2] [3] [tree] [4] [4big]
+        (no argument: all six)
 """
 
 import argparse
+import contextlib
 import hashlib
 import io
 import json
 import os
 import sys
+import tempfile
 import time
 
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
@@ -160,6 +170,32 @@ def config1() -> None:
     print(f"config 1: reference run took {seconds:.1f} s on the CPU", file=sys.stderr)
 
 
+def config2() -> None:
+    from mauvealigner_tpu.tools.cli import main as jax_cli
+
+    genomes = digest.config2_genomes(simulate)
+    with tempfile.TemporaryDirectory() as d:
+        digest.write_fasta_files(genomes, d, digest.CONFIG2_SEQS)
+        with contextlib.chdir(d):
+            t0 = time.perf_counter()
+            if jax_cli(["mauveAligner", *digest.CONFIG2_ARGS]) != 0:
+                raise SystemExit("config 2: the JAX mauveAligner command line failed")
+            seconds = time.perf_counter() - t0
+        got = digest.mauve_aligner_digest(d)
+    golden = {
+        "config": "BASELINE config 2 (scripts/bench_configs.py config2): seed 37, "
+        "random_genome(500_000), evolve(sub_rate=0.01) and evolve(sub_rate=0.02) with "
+        "ins_rate=del_rate=0.001, the second inverted over 150,000-250,000; "
+        "mauveAligner " + " ".join(digest.CONFIG2_ARGS),
+        "reference": "mauvealigner_tpu (JAX) on the CPU",
+        "genome_sha256": digest.genome_sha256(genomes),
+        "genome_lengths": [len(g) for g in genomes],
+        **got,
+    }
+    _write("config2_golden.json", golden)
+    print(f"config 2: reference run took {seconds:.1f} s on the CPU", file=sys.stderr)
+
+
 def _repeatoire(spacer_scale: int, name: str, label: str) -> None:
     pg = port_simulate.planted_repeats(spacer_scale)
     g = simulate.Genome(pg.seq.copy(), name=pg.name)
@@ -193,9 +229,11 @@ def config4_big() -> None:
 
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("configs", nargs="*", choices=["1", "3", "tree", "4", "4big"], default=[])
+    p.add_argument("configs", nargs="*", choices=["1", "2", "3", "tree", "4", "4big"],
+                   default=[])
     a = p.parse_args()
-    run = {"1": config1, "3": config3, "tree": tree_branch, "4": config4, "4big": config4_big}
+    run = {"1": config1, "2": config2, "3": config3, "tree": tree_branch, "4": config4,
+           "4big": config4_big}
     for c in a.configs or list(run):
         run[c]()
     return 0

@@ -36,8 +36,12 @@ struct EmuDim { unsigned x, y, z; };
 inline thread_local EmuDim threadIdx, blockIdx, blockDim;
 typedef int cudaError_t;
 typedef void* cudaStream_t;
-enum { cudaSuccess = 0, cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+enum { cudaDevAttrMaxSharedMemoryPerBlockOptin = 97 };
 template <class F> cudaError_t cudaFuncSetAttribute(F, int, int) { return 0; }
+inline cudaError_t cudaGetDevice(int* dev) { *dev = 0; return 0; }
+// an H100's opt-in limit
+inline cudaError_t cudaDeviceGetAttribute(int* v, int, int) { *v = 232448; return 0; }
 inline cudaError_t cudaGetLastError() { return 0; }
 inline const char* cudaGetErrorString(cudaError_t) { return "no error (CPU emulation)"; }
 using std::max;

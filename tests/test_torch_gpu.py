@@ -11,6 +11,8 @@ torch (tests/conftest.py imports jax, hence --noconftest):
 """
 
 import io
+import os
+import sys
 
 import numpy as np
 import pytest
@@ -18,8 +20,12 @@ import torch
 
 from mauvealigner_tpu_torch.genome.sequence import Genome
 from mauvealigner_tpu_torch.models.aligner import AlignerOptions, MauveAligner
-from mauvealigner_tpu_torch.ops import dp, gotoh_cuda
+from mauvealigner_tpu_torch.ops import _build, dp, gotoh_cuda
 from mauvealigner_tpu_torch.utils import simulate
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                                "scripts"))
+from gotoh_replay import random_batch, random_profile_batch  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -72,13 +78,90 @@ def test_kernels_match_plain(rng, cuda_device, side):
     assert gotoh_cuda.LAUNCHES["gotoh_traceback"] == before["gotoh_traceback"] + 1
 
 
-def test_kernel_rejects_sides_past_shared_memory(cuda_device):
-    big = gotoh_cuda.MAX_SIDE + 1
-    z = torch.zeros((1, big), dtype=torch.uint8, device=cuda_device)
-    n = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+def _large_side_batch(rng, kind, side, dev):
+    """B = 2 at one bucket side above shared memory: one problem with both
+    lengths above the old limit (8192 codes, 4096 profiles), one with the
+    A side long and the B side short."""
+    lens = (np.array([side - 3, side // 2 + 7], np.int32),
+            np.array([side - 11, 900], np.int32))
+    if kind == "codes":
+        arrs = random_batch(rng, 2, side, lens)
+        return [torch.from_numpy(x).to(dev) for x in arrs]
+    pa, pb, la, lb = random_profile_batch(rng, 2, side, lens)
+    return [torch.from_numpy(pa).to(dev).to(torch.float32),
+            torch.from_numpy(pb).to(dev).to(torch.float32),
+            torch.from_numpy(la).to(dev), torch.from_numpy(lb).to(dev)]
+
+
+def _forward(kind, x, sub, normalize=False):
+    if kind == "codes":
+        return gotoh_cuda.gotoh_forward_codes(*x, sub, GO, GE)
+    return gotoh_cuda.gotoh_forward_profiles(*x, sub, GO, GE, normalize)
+
+
+def _plain_forward(kind, x, sub, normalize=False):
+    if kind == "codes":
+        return dp.gotoh_forward_codes_ref(*x, sub, GO, GE)
+    return dp.gotoh_forward_profiles_ref(*x, sub, GO, GE, normalize)
+
+
+@pytest.mark.parametrize("kind,side", [("codes", 16384), ("profiles", 8192)])
+def test_kernel_runs_sides_past_shared_memory(rng, cuda_device, kind, side):
+    """Sides whose row buffers and staged B side exceed a block's shared
+    memory run through the device slab: scores exact, live decision bytes
+    identical, and the traceback's ops and counts equal the plain
+    version's, one launch of each counted."""
+    x = _large_side_batch(rng, kind, side, cuda_device)
     sub = torch.from_numpy(dp.HOXD70.copy()).to(cuda_device)
-    with pytest.raises(ValueError, match="shared-memory"):
-        gotoh_cuda.gotoh_forward_codes(z, z, n, n, sub, GO, GE)
+    assert _build.library().gotoh_forward_scratch_bytes(
+        2, side, int(kind == "profiles"), 0) > 0
+    before = dict(gotoh_cuda.LAUNCHES)
+    s_k, d_k = _forward(kind, x, sub)
+    o_k, c_k = gotoh_cuda.gotoh_traceback(d_k, x[2], x[3])
+    s_p, d_p = _plain_forward(kind, x, sub)
+    o_p, c_p = dp.gotoh_traceback_ref(d_p, x[2], x[3])
+    torch.cuda.synchronize()
+    live = dp.live_cell_mask(x[2], x[3], side, side)
+    assert torch.equal(s_k, s_p) and torch.equal(d_k[live], d_p[live])
+    assert torch.equal(o_k, o_p) and torch.equal(c_k, c_p)
+    key = f"gotoh_forward_{kind}"
+    assert gotoh_cuda.LAUNCHES[key] == before[key] + 1
+    assert gotoh_cuda.LAUNCHES["gotoh_traceback"] == before["gotoh_traceback"] + 1
+
+
+@pytest.mark.parametrize("kind", ["codes", "profiles"])
+@pytest.mark.parametrize("side", [64, 512])
+def test_device_slab_at_small_sides(rng, cuda_device, kind, side):
+    """A launcher shared-memory limit below one problem's buffer sends
+    small sides through the device slab too: the same result."""
+    import ctypes
+
+    B, limit = 12, 1024
+    x = _profiles(rng, B, side, cuda_device) if kind == "profiles" else _batch(
+        rng, B, side, cuda_device)
+    sub = torch.from_numpy(dp.HOXD70.copy()).to(cuda_device)
+    lib = _build.library()
+    go_ge, ge = dp.gap_scalars(GO, GE)
+    stream = ctypes.c_void_p(torch.cuda.current_stream(cuda_device).cuda_stream)
+    p = gotoh_cuda._ptr
+    nbytes = lib.gotoh_forward_scratch_bytes(B, side, int(kind == "profiles"), limit)
+    assert nbytes > 0
+    slab = torch.empty(nbytes, dtype=torch.uint8, device=cuda_device)
+    scores = torch.empty(B, dtype=torch.float32, device=cuda_device)
+    dec = torch.empty((B, 2 * side + 1, side + 1), dtype=torch.uint8, device=cuda_device)
+    if kind == "codes":
+        err = lib.gotoh_forward_codes_launch(
+            *(p(t) for t in x), p(sub), go_ge, ge, B, side, side, 0, limit, p(slab),
+            p(scores), p(dec), stream)
+    else:
+        err = lib.gotoh_forward_profiles_launch(
+            *(p(t) for t in x), p(sub), go_ge, ge, B, side, side, 1, 0, limit, p(slab),
+            p(scores), p(dec), stream)
+    assert err == 0
+    s_p, d_p = _plain_forward(kind, x, sub, True)
+    torch.cuda.synchronize()
+    live = dp.live_cell_mask(x[2], x[3], side, side)
+    assert torch.equal(scores, s_p) and torch.equal(dec[live], d_p[live])
 
 
 @pytest.mark.parametrize("warps", [1, 2, 3, 8, 16])
@@ -103,14 +186,14 @@ def test_every_block_shape_matches_plain(rng, cuda_device, warps):
         dec = torch.empty((10, 2 * side + 1, side + 1), dtype=torch.uint8, device=cuda_device)
         if kind == "codes":
             err = lib.gotoh_forward_codes_launch(
-                p(ca), p(cb), p(la), p(lb), p(sub), go_ge, ge, 10, side, side, warps,
+                p(ca), p(cb), p(la), p(lb), p(sub), go_ge, ge, 10, side, side, warps, 0, None,
                 p(scores), p(dec), stream)
             s_p, d_p = dp.gotoh_forward_codes_ref(ca, cb, la, lb, sub, GO, GE)
             live = dp.live_cell_mask(la, lb, side, side)
         else:
             err = lib.gotoh_forward_profiles_launch(
-                p(pa), p(pb), p(pla), p(plb), p(sub), go_ge, ge, 10, side, side, 1, warps,
-                p(scores), p(dec), stream)
+                p(pa), p(pb), p(pla), p(plb), p(sub), go_ge, ge, 10, side, side, 1, warps, 0,
+                None, p(scores), p(dec), stream)
             s_p, d_p = dp.gotoh_forward_profiles_ref(pa, pb, pla, plb, sub, GO, GE, True)
             live = dp.live_cell_mask(pla, plb, side, side)
         assert err == 0
@@ -184,15 +267,6 @@ def test_profile_kernel_matches_plain(rng, cuda_device, side, normalize):
     live = dp.live_cell_mask(la, lb, side, side)
     assert torch.equal(s_k, s_p) and torch.equal(d_k[live], d_p[live])
     assert gotoh_cuda.LAUNCHES["gotoh_forward_profiles"] == before + 1
-
-
-def test_profile_kernel_rejects_sides_past_shared_memory(cuda_device):
-    big = gotoh_cuda.PROFILE_MAX_SIDE + 1
-    z = torch.zeros((1, big, 5), dtype=torch.float32, device=cuda_device)
-    n = torch.zeros(1, dtype=torch.int32, device=cuda_device)
-    sub = torch.from_numpy(dp.HOXD70.copy()).to(cuda_device)
-    with pytest.raises(ValueError, match="shared-memory"):
-        gotoh_cuda.gotoh_forward_profiles(z, z, n, n, sub, GO, GE)
 
 
 def test_progressive_gpu_matches_cpu(rng, cuda_device):

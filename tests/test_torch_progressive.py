@@ -170,9 +170,9 @@ def test_three_way_mauve_aligner_identical(rng):
 
 
 def test_mesh_and_missing_gpu_raise():
-    with pytest.raises(NotImplementedError, match="slice 5"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
         TorchProgressive(TorchOptions(mesh=object(), device="cpu"))
-    with pytest.raises(NotImplementedError, match="slice 5"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
         interop.progressive_options(ProgressiveOptions(mesh=object()), "cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
