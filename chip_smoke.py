@@ -10,9 +10,17 @@ scripts/bench_configs.py) through ProgressiveMauve (the extant branch of
 its gate), 9 x 1 Mbp enterobacteria-like genomes through ProgressiveMauve
 (the tree-progressive branch), BASELINE config 4 (the 236 kbp
 planted-family genome, scripts/bench_configs.py config4) through
-Repeatoire cold and warm, and the same generator with every spacer 4x as
-long (926 kbp, bacterial scale) through Repeatoire once.  Each run is held to the JAX package's outputs
-recorded in mauvealigner_tpu_torch/data/*_golden.json.
+Repeatoire cold and warm, the same generator with every spacer 4x as
+long (926 kbp, bacterial scale) through Repeatoire once, BASELINE config 5
+(the draft workflow of scripts/bench_configs.py config5: a 150 kbp
+reference and 7 drafts of 6 shuffled, partly inverted contigs, each draft's
+anchors through MauveAligner and its contigs through sortContigs, then
+ProgressiveMauve of the reference and the reordered drafts) cold and warm,
+then sortContigs and uniqueMerCount through the command line on its
+reference and first draft, and the same workflow at BASELINE's 20+ drafts
+(a 500 kbp reference and 20 drafts of 20 contigs) once.  Each run is held
+to the JAX package's outputs recorded in
+mauvealigner_tpu_torch/data/*_golden.json.
 
 Usage (from the repository root, one NVIDIA GPU):  python3 chip_smoke.py
 
@@ -22,10 +30,10 @@ kernels write; the traceback kernel is held to the plain traceback on the
 plain decisions and on each forward kernel's decisions with every byte
 outside the live rectangles poisoned (POISON).  After the driven paths,
 config 2's, config 3's and config 4's cold-run launch lists
-(gotoh_cuda.LAUNCH_SHAPES) are replayed with random contents at the
-recorded lengths (scripts/gotoh_replay.py): each kernel's summed ms, bound
-and roofline share print on the "main path" lines, and the traceback's
-chain floor beside its bound.
+(gotoh_cuda.LAUNCH_SHAPES), and config 5's, are replayed with random
+contents at the recorded lengths (scripts/gotoh_replay.py): each kernel's
+summed ms, bound and roofline share print on the "main path" lines, and the
+traceback's chain floor beside its bound.
 
 Phases print on their own lines; any failure exits non-zero before the
 result line.  The second-to-last line is one JSON object describing each
@@ -519,6 +527,90 @@ def config4_big(dev) -> dict:
     return repeatoire_run(genome, golden, "config4_big", dev)
 
 
+def draft_run(ref, drafts, golden: dict, label: str, dev) -> dict:
+    """The draft workflow on the card (utils/digest.sort_drafts: per draft
+    MauveAligner's anchor search and LCBs against the reference, then
+    sortContigs; then ProgressiveMauve of the reference and the reordered
+    drafts), every launch count set to 0 just before it; held to every
+    field of the golden, with every kernel launched."""
+    from mauvealigner_tpu_torch.models import aligner as aligner_mod
+    from mauvealigner_tpu_torch.tools import manipulate
+
+    timing.GLOBAL.reset()
+    gotoh_cuda.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reordered, logs = digest.sort_drafts(ref, drafts, aligner_mod, manipulate, device=str(dev))
+    torch.cuda.synchronize()
+    front = time.perf_counter() - t0
+    timing.GLOBAL.reset()
+    res = ProgressiveMauve(ProgressiveOptions(use_sml_cache=False, device=str(dev))).align(
+        [ref] + reordered)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(gotoh_cuda.LAUNCHES)
+    shapes = list(gotoh_cuda.LAUNCH_SHAPES)
+    branch = "tree" if "tree_progressive" in timing.GLOBAL.phases else "extant"
+    got = digest.draft_digest(reordered, logs, res, branch, golden["bbcols_name"])
+    c = timing.GLOBAL.counters
+    say(f"{label}: {secs:.3f} s (front half {front:.3f} s, progressive {secs - front:.3f} s), "
+        f"{json.dumps({k: v for k, v in got.items() if k != 'placement_logs'})}, "
+        f"launches {launches}, dp_cells {c.get('dp_cells', 0):.0f}, "
+        f"dp_calls {c.get('dp_calls', 0):.0f}")
+    say(f"{label} placement logs: " + "; ".join(
+        " ".join(f"{n}{'+' if s > 0 else '-' if s < 0 else '?'}" for n, s in log)
+        for log in got["placement_logs"]))
+    say(f"{label} per-phase report (progressive):\n" + timing.GLOBAL.report().rstrip())
+    say(f"{label} peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+    for k in (*digest.DRAFT_KEYS, *DIGEST_KEYS):
+        if got[k] != golden[k]:
+            raise SystemExit(f"{label}: {k} = {got[k]!r}, golden {golden[k]!r}")
+    for k in KERNELS:
+        if launches[k] <= 0:
+            raise SystemExit(f"{label}: kernel {k} was never launched")
+    return {"seconds": secs, "front_half_seconds": front, "launches": launches,
+            "shapes": shapes}
+
+
+def config5(dev) -> dict:
+    """BASELINE config 5 (scripts/bench_configs.py config5: a 150 kbp
+    reference and 7 drafts of 6 shuffled, partly inverted contigs, seed 37),
+    the draft workflow cold and warm; then sortContigs and uniqueMerCount
+    through the port's command line on the reference and the first draft."""
+    t0 = time.perf_counter()
+    ref, drafts = simulate.draft_genomes(150_000, 8, 6)
+    say(f"config5 genomes built in {time.perf_counter() - t0:.1f} s (host)")
+    golden = load_golden("config5_golden.json", [ref] + drafts)
+    say("config5 genomes match the golden sha256")
+    runs = {label: draft_run(ref, drafts, golden, f"config5 {label}", dev)
+            for label in ("cold", "warm")}
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        got = digest.draft_cli_digest(port_cli, ref, drafts[0], d, [f"--device={dev}"])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    say(f"config5 command lines (sortContigs, uniqueMerCount x 2): {secs:.3f} s, "
+        f"{json.dumps(got)}")
+    for k in digest.DRAFT_CLI_KEYS:
+        if got[k] != golden["cli"][k]:
+            raise SystemExit(f"config5 command lines: {k} = {got[k]!r}, golden {golden['cli'][k]!r}")
+    runs["cli_seconds"] = secs
+    return runs
+
+
+def config5_wide(dev) -> dict:
+    """The draft workflow at BASELINE's 20+ drafts: a 500 kbp reference and
+    20 drafts of 20 contigs (config 5's contig density), once.  Its gate
+    takes the tree-progressive branch, as in the JAX package."""
+    t0 = time.perf_counter()
+    ref, drafts = simulate.draft_genomes(500_000, 21, 20)
+    say(f"config5_wide genomes built in {time.perf_counter() - t0:.1f} s (host)")
+    golden = load_golden("config5_wide_golden.json", [ref] + drafts)
+    say("config5_wide genomes match the golden sha256")
+    return draft_run(ref, drafts, golden, "config5_wide", dev)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -546,9 +638,12 @@ def main() -> int:
     runs_tree = tree_branch(dev)
     runs4 = config4(dev)
     runs4_big = config4_big(dev)
+    runs5 = config5(dev)
+    runs5_wide = config5_wide(dev)
     mainpath2 = mainpath_times(dev, runs2["cold"]["shapes"], "2")
     mainpath = mainpath_times(dev, runs3["cold"]["shapes"], "3")
     mainpath4 = mainpath_times(dev, runs4["cold"]["shapes"], "4")
+    mainpath5 = mainpath_times(dev, runs5["cold"]["shapes"], "5")
 
     kernels = []
     for name, replaces in KERNELS.items():
@@ -559,9 +654,9 @@ def main() -> int:
             "route": "cuda",
             "source": "mauvealigner_tpu_torch/csrc/gotoh.cu",
             "replaces": replaces,
-            # launches of the progressive main path (config 3, cold run);
-            # each path's own counts beside it
-            "launches": runs3["cold"]["launches"][name],
+            # launches of the draft workflow's main path (config 5, cold
+            # run); each path's own counts beside it
+            "launches": runs5["cold"]["launches"][name],
             "launches_by_path": {
                 "config1": runs["cold"]["launches"][name],
                 "config2": runs2["cold"]["launches"][name],
@@ -569,6 +664,8 @@ def main() -> int:
                 "tree": runs_tree["launches"][name],
                 "config4": runs4["cold"]["launches"][name],
                 "config4_big": runs4_big["launches"][name],
+                "config5": runs5["cold"]["launches"][name],
+                "config5_wide": runs5_wide["launches"][name],
             },
             "max_abs_err": s["max_abs_err"],
             # ms, plain_ms and bound_ms at the largest timed side
@@ -585,13 +682,16 @@ def main() -> int:
             "mainpath_ms": m["ms"],
             "mainpath_bound_ms": m["bound_ms"],
             "mainpath_launches": m["launches"],
-            # config 2's and config 4's cold-run launch lists replayed the same way
+            # config 2's, 4's and 5's cold-run launch lists replayed the same way
             "mainpath_config2_ms": mainpath2[name]["ms"],
             "mainpath_config2_bound_ms": mainpath2[name]["bound_ms"],
             "mainpath_config2_launches": mainpath2[name]["launches"],
             "mainpath_config4_ms": mainpath4[name]["ms"],
             "mainpath_config4_bound_ms": mainpath4[name]["bound_ms"],
             "mainpath_config4_launches": mainpath4[name]["launches"],
+            "mainpath_config5_ms": mainpath5[name]["ms"],
+            "mainpath_config5_bound_ms": mainpath5[name]["bound_ms"],
+            "mainpath_config5_launches": mainpath5[name]["launches"],
         })
         if name in large:
             # the largest side checked: above shared memory, the device slab
@@ -602,7 +702,8 @@ def main() -> int:
             kernels[-1].update(chain_floor_ms=s["chain_floor_ms"],
                                mainpath_chain_floor_ms=m["chain_floor_ms"],
                                mainpath_after_forward_ms=m["after_forward_ms"],
-                               mainpath_config4_chain_floor_ms=mainpath4[name]["chain_floor_ms"])
+                               mainpath_config4_chain_floor_ms=mainpath4[name]["chain_floor_ms"],
+                               mainpath_config5_chain_floor_ms=mainpath5[name]["chain_floor_ms"])
     say(card_line())
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

@@ -72,6 +72,9 @@ class SortedMerList:
     def seed_length(self) -> int:
         return self.seed.length
 
+    def unique_mer_count(self) -> int:
+        return merops.unique_mer_count(self.keys, len(self.keys))
+
 
 def build_sml(genome: Genome, seed: Seed, device="cuda") -> SortedMerList:
     """Run the sorted K1 pipeline for one genome on `device`; host arrays."""

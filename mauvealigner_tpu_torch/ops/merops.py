@@ -1,7 +1,8 @@
 """K1: spaced-mer packing and strand canonicalization, in torch.
 
 Port of mauvealigner_tpu/ops/merops.py (pack_canonical_mers, build_mer_list,
-and the sorted variants build_sorted_mer_list and sort_key_pos);
+the sorted variants build_sorted_mer_list and sort_key_pos, and the host
+unique_mer_count over a sorted list);
 libMems SortedMerList/DNAFileSML construction in the reference
 (src/mauveAligner.cpp:365, src/progressiveMauve.cpp:447).
 
@@ -27,6 +28,7 @@ from __future__ import annotations
 
 from typing import Sequence, Tuple
 
+import numpy as np
 import torch
 
 from mauvealigner_tpu_torch.genome.sequence import CODE_N
@@ -92,3 +94,18 @@ def build_sorted_mer_list(
     keys_s, pos_s = sort_key_pos(keys, positions)
     n_valid = int((keys_s != INVALID_KEY).sum())
     return keys_s, pos_s, n_valid
+
+
+def unique_mer_count(sorted_keys: np.ndarray, n_valid: int) -> int:
+    """Number of distinct strand-free mers that occur exactly once
+    (UniqueMerCount; reference tool src/uniqueMerCount.cpp:30-39), on the
+    host over a sorted key list."""
+    mers = np.asarray(sorted_keys[:n_valid]) >> 1
+    if len(mers) == 0:
+        return 0
+    # keys ascending => mers (key >> 1) ascending: the strand LSB cannot
+    # reorder distinct mers, so no re-sort is needed
+    new_run = np.concatenate([[True], mers[1:] != mers[:-1]])
+    run_ids = np.cumsum(new_run) - 1
+    counts = np.bincount(run_ids)
+    return int(np.sum(counts == 1))

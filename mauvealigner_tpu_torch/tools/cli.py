@@ -6,16 +6,21 @@ Usage:  python -m mauvealigner_tpu_torch.tools mauveAligner a.fa b.fa \\
             --output=o.xmfa [--device=cuda]
         python -m mauvealigner_tpu_torch.tools repeatoire --sequence=g.fa \\
             --output=reps.xmfa [--xml=reps.xml] [--device=cuda]
+        python -m mauvealigner_tpu_torch.tools sortContigs ref.fa draft.fa \\
+            --output=draft.sorted.fa [--device=cuda]
         python -m mauvealigner_tpu_torch.tools --list
 
-Port of mauvealigner_tpu/tools/cli.py: the three aligners with every flag
-of the reference's command lines (src/mauveAligner.cpp,
-src/progressiveMauve.cpp, src/repeatoire.cpp), the scoring tools
-(scoreAlignment, scoreProcrastAlignment, scoreALU), evd and multiEVD,
-bbAnalyze and bbBreakOnGenes, gappiness, and the format converters.  The
-aligners take --device (cuda runs the CUDA kernels, cpu the plain-torch
-versions); the other tools are host code.  What is not ported yet is listed
-in ROADMAP.md.
+Port of mauvealigner_tpu/tools/cli.py, all 51 subcommands: the three
+aligners with every flag of the reference's command lines
+(src/mauveAligner.cpp, src/progressiveMauve.cpp, src/repeatoire.cpp), the
+scoring tools (scoreAlignment, scoreProcrastAlignment, scoreALU), evd and
+multiEVD, bbAnalyze and bbBreakOnGenes, gappiness, the format converters,
+the projection and strip tools (tools/manipulate.py), the backbone and
+coverage tools (tools/backbone_tools.py), the tree tools
+(tools/tree_tools.py), sortContigs and uniqueMerCount.  The aligners,
+sortContigs (MauveAligner's anchor search) and uniqueMerCount (the K1 sort)
+take --device: cuda runs on the GPU, cpu the plain-torch versions, with no
+fallback between them; the other tools are host code.
 """
 
 from __future__ import annotations
@@ -1336,6 +1341,897 @@ def count_in_place_inversions_cli(argv: List[str]) -> int:
         print(f"In-place inversion in seq {seq}\tlend: {lend}\trend: {rend}")
     return 0
 
+# ---------------------------------------------------------------- projection and strip
+
+@tool("transposeCoordinates")
+def transpose_coordinates_cli(argv: List[str]) -> int:
+    p = argparse.ArgumentParser(
+        prog="transposeCoordinates",
+        description="Shift match coordinates by masked-region offsets "
+        "(reference: src/transposeCoordinates.cpp)",
+    )
+    p.add_argument("match_list")
+    p.add_argument("regions",
+                   help="removed-region TSV seq<TAB>start<TAB>length per "
+                   "line; OR (reference mode, with seq_id given) a flat "
+                   "whitespace list of start/length pairs for that one "
+                   "sequence")
+    p.add_argument("seq_id", nargs="?", type=int, default=None,
+                   help="sequence ID the coordinates apply to (reference "
+                   "arg 3; enables reference mode + n-way filter)")
+    p.add_argument("output")
+    a = p.parse_args(argv)
+    from mauvealigner_tpu_torch.core import mln
+    from mauvealigner_tpu_torch.tools.manipulate import transpose_coordinates
+
+    ml, names, lens = mln.read_match_list(a.match_list)
+    per_seq: dict = {}
+    if a.seq_id is not None:
+        # reference interface (src/transposeCoordinates.cpp:44-55):
+        # flat coordinate list for one sequence, n-way filter first
+        ml = ml.select(ml.multiplicity() >= ml.n_seqs)
+        toks = open(a.regions).read().split()
+        vals = [int(t) for t in toks if t.lstrip("-").isdigit()]
+        per_seq[a.seq_id] = list(zip(vals[::2], vals[1::2]))
+    else:
+        with open(a.regions) as fh:
+            for line in fh:
+                toks = line.split()
+                if len(toks) >= 3 and all(t.lstrip("-").isdigit() for t in toks[:3]):
+                    per_seq.setdefault(int(toks[0]), []).append(
+                        (int(toks[1]), int(toks[2]))
+                    )
+    regions = []
+    for s in range(ml.n_seqs):
+        regs = per_seq.get(s, [])
+        regions.append(np.array(regs, np.int64).reshape(-1, 2))
+    out_ml = transpose_coordinates(ml, regions)
+    with open_out(a.output) as fh:
+        mln.write_match_list(out_ml, fh, names, lens)
+    return 0
+
+
+# ---------------------------------------------------------------- utilities
+
+
+@tool("uniqueMerCount")
+def unique_mer_count_cli(argv: List[str]) -> int:
+    p = argparse.ArgumentParser(prog="uniqueMerCount")
+    p.add_argument("seq")
+    p.add_argument("--seed-weight", type=int, default=0)
+    p.add_argument("--device", default="cuda",
+                   help="torch device of the K1 sort: cuda or cpu (no "
+                   "fallback between them)")
+    a = p.parse_args(argv)
+    from mauvealigner_tpu_torch.core.sml import build_sml
+    from mauvealigner_tpu_torch.models.aligner import resolve_device
+    from mauvealigner_tpu_torch.seeds import default_mer_size, get_seed
+
+    dev = resolve_device(a.device)
+    g = load_genome(a.seq)
+    w = a.seed_weight or default_mer_size(len(g))
+    sml = build_sml(g, get_seed(w, 0), dev)
+    print(sml.unique_mer_count())
+    return 0
+
+
+@tool("stripGapColumns")
+def strip_gap_columns_cli(argv: List[str]) -> int:
+    p = argparse.ArgumentParser(prog="stripGapColumns")
+    p.add_argument("alignment")
+    p.add_argument("output")
+    p.add_argument("seqs", nargs="*")
+    a = p.parse_args(argv)
+    from mauvealigner_tpu_torch.tools.manipulate import strip_gap_columns
+
+    strip_gap_columns(_read_alignment(a.alignment, a.seqs)).write_xmfa(a.output)
+    return 0
+
+
+@tool("stripSubsetLCBs")
+def strip_subset_lcbs_cli(argv: List[str]) -> int:
+    p = argparse.ArgumentParser(
+        prog="stripSubsetLCBs",
+        description="Keep backbone blocks covering enough genomes "
+        "(reference: src/stripSubsetLCBs.cpp).  With --bbcols, crops each "
+        "backbone-column segment out of its interval (reference mode); "
+        "without, filters whole LCBs.",
+    )
+    p.add_argument("alignment")
+    p.add_argument("output")
+    p.add_argument("--bbcols", default="",
+                   help="bbcols file: reference mode (crop backbone segments)")
+    p.add_argument("--min-seqs", type=int, default=None,
+                   help="min genomes per block (default: all, reference "
+                   "src/stripSubsetLCBs.cpp:123)")
+    p.add_argument("--min-length", type=int, default=1,
+                   help="min mean block length (reference 'min LCB size')")
+    p.add_argument("--sample", type=int, default=None,
+                   help="subsample to N blocks (whole-LCB mode)")
+    p.add_argument("--sample-kb", type=int, default=0,
+                   help="subsample to ~N kb of columns (reference mode)")
+    p.add_argument("seqs", nargs="*")
+    a = p.parse_args(argv)
+    from mauvealigner_tpu_torch.tools.manipulate import (
+        strip_subset_lcbs,
+        strip_subset_lcbs_bbcols,
+    )
+
+    ivl = _read_alignment(a.alignment, a.seqs)
+    if a.bbcols:
+        from mauvealigner_tpu_torch.analysis.backbone import read_backbone_cols_file
+
+        out = strip_subset_lcbs_bbcols(
+            ivl,
+            read_backbone_cols_file(a.bbcols),
+            min_block_length=a.min_length,
+            min_genomes=a.min_seqs,
+            sample_kb=a.sample_kb,
+        )
+    else:
+        out = strip_subset_lcbs(
+            ivl, a.min_seqs if a.min_seqs is not None else 2, a.min_length, a.sample
+        )
+    out.write_xmfa(a.output)
+    return 0
+
+
+@tool("alignmentProjector")
+def alignment_projector_cli(argv: List[str]) -> int:
+    p = argparse.ArgumentParser(prog="alignmentProjector")
+    p.add_argument("alignment")
+    p.add_argument("output")
+    p.add_argument("--seqs", required=True, help="comma-separated 0-based indices")
+    p.add_argument("seq_files", nargs="*")
+    a = p.parse_args(argv)
+    idx = [int(x) for x in a.seqs.split(",")]
+    from mauvealigner_tpu_torch.tools.manipulate import alignment_projector
+
+    alignment_projector(_read_alignment(a.alignment, a.seq_files), idx).write_xmfa(a.output)
+    return 0
+
+
+@tool("projectAndStrip")
+def project_and_strip_cli(argv: List[str]) -> int:
+    p = argparse.ArgumentParser(prog="projectAndStrip")
+    p.add_argument("alignment")
+    p.add_argument("output")
+    p.add_argument("--seqs", required=True)
+    p.add_argument("--min-seqs", type=int, default=2)
+    p.add_argument("--min-length", type=int, default=1)
+    p.add_argument("seq_files", nargs="*")
+    a = p.parse_args(argv)
+    from mauvealigner_tpu_torch.tools.manipulate import project_and_strip
+
+    idx = [int(x) for x in a.seqs.split(",")]
+    project_and_strip(
+        _read_alignment(a.alignment, a.seq_files), idx, a.min_seqs, a.min_length
+    ).write_xmfa(a.output)
+    return 0
+
+
+@tool("extractSubalignments")
+def extract_subalignments_cli(argv: List[str]) -> int:
+    p = argparse.ArgumentParser(prog="extractSubalignments")
+    p.add_argument("alignment")
+    p.add_argument("output")
+    p.add_argument("--seq", type=int, required=True)
+    p.add_argument("--left", type=int, required=True)
+    p.add_argument("--right", type=int, required=True)
+    p.add_argument("seq_files", nargs="*")
+    a = p.parse_args(argv)
+    from mauvealigner_tpu_torch.tools.manipulate import extract_subalignment
+
+    ivl = _read_alignment(a.alignment, a.seq_files)
+    subs = extract_subalignment(ivl, a.seq, a.left, a.right)
+    out = IntervalList(
+        genomes=ivl.genomes, intervals=subs, seq_filenames=list(ivl.seq_filenames)
+    )
+    out.write_xmfa(a.output)
+    return 0
+
+
+@tool("getAlignmentWindows")
+def get_alignment_windows_cli(argv: List[str]) -> int:
+    p = argparse.ArgumentParser(
+        prog="getAlignmentWindows",
+        description="Sliding-window slices of an XMFA (reference: "
+        "src/getAlignmentWindows.cpp).  Default output is the reference's "
+        "directory tree <base>/interval_<i>/window_<a>_to_<b>.mfa; "
+        "--format=xmfa writes all windows into one XMFA instead.",
+    )
+    p.add_argument("alignment")
+    p.add_argument("output", help="base output directory (or XMFA file "
+                   "with --format=xmfa)")
+    p.add_argument("--window", type=int, required=True,
+                   help="window length (reference second arg)")
+    p.add_argument("--step", type=int, default=None,
+                   help="window shift amount (reference third arg; "
+                   "default = window length)")
+    p.add_argument("--format", choices=["dir", "xmfa"], default=None)
+    p.add_argument("seq_files", nargs="*")
+    a = p.parse_args(argv)
+    fmt = a.format or ("xmfa" if a.output.endswith(".xmfa") else "dir")
+    ivl = _read_alignment(a.alignment, a.seq_files)
+    if fmt == "xmfa":
+        from mauvealigner_tpu_torch.tools.manipulate import alignment_windows
+
+        wins = alignment_windows(ivl, a.window, a.step)
+        IntervalList(
+            genomes=ivl.genomes, intervals=wins, seq_filenames=list(ivl.seq_filenames)
+        ).write_xmfa(a.output)
+        return 0
+    import os
+
+    shift = a.step or a.window
+    names = ivl.filenames()
+    os.makedirs(a.output, exist_ok=True)
+    for k, iv in enumerate(ivl.intervals):
+        iv_dir = os.path.join(a.output, f"interval_{k}")
+        os.makedirs(iv_dir, exist_ok=True)
+        texts = {
+            s: iv.aligned_text(ivl.genomes, s)
+            for s in range(iv.n_seqs)
+            if iv.starts[s] != 0
+        }
+        left = 0
+        while left < iv.n_cols:
+            size = min(a.window, iv.n_cols - left)
+            fname = os.path.join(iv_dir, f"window_{left}_to_{left + size - 1}.mfa")
+            with open(fname, "w") as fh:
+                for s, text in texts.items():
+                    write_fasta_row(fh, names[s] or f"seq{s}",
+                                    text[left : left + size])
+            left += shift
+    return 0
+
+
+@tool("joinAlignmentFiles")
+def join_alignment_files_cli(argv: List[str]) -> int:
+    p = argparse.ArgumentParser(prog="joinAlignmentFiles")
+    p.add_argument("output")
+    p.add_argument("alignments", nargs="+")
+    a = p.parse_args(argv)
+    from mauvealigner_tpu_torch.tools.manipulate import join_alignment_files
+
+    lists = [_read_alignment(path, []) for path in a.alignments]
+    join_alignment_files(lists).write_xmfa(a.output)
+    return 0
+
+
+@tool("addUnalignedIntervals")
+def add_unaligned_intervals_cli(argv: List[str]) -> int:
+    p = argparse.ArgumentParser(prog="addUnalignedIntervals")
+    p.add_argument("alignment")
+    p.add_argument("output")
+    p.add_argument("seq_files", nargs="*")
+    a = p.parse_args(argv)
+    ivl = _read_alignment(a.alignment, a.seq_files)
+    ivl.add_unaligned_intervals()
+    ivl.write_xmfa(a.output)
+    return 0
+
+
+@tool("coordinateTranslate")
+def coordinate_translate_cli(argv: List[str]) -> int:
+    p = argparse.ArgumentParser(
+        prog="coordinateTranslate",
+        description="Alignment column -> per-genome sequence coordinates "
+        "(reference: src/coordinateTranslate.cpp).  With a coordinate FILE "
+        "of '<block ID> <column>' pairs, prints one tab row of positions "
+        "per query (0 where the genome is gapped/undefined) — the "
+        "reference interface.  With --seq/--position, maps a sequence "
+        "position to its (interval, column) instead.",
+    )
+    p.add_argument("alignment")
+    p.add_argument("coords", nargs="?", default="",
+                   help="coordinate file: '<block ID> <column>' per line")
+    p.add_argument("--seq", type=int, default=None)
+    p.add_argument("--position", type=int, default=None)
+    p.add_argument("--seq-files", default="",
+                   help="comma-separated sequence files")
+    a = p.parse_args(argv)
+    seq_files = a.seq_files.split(",") if a.seq_files else []
+    ivl = _read_alignment(a.alignment, seq_files)
+    if a.seq is not None and a.position is not None:
+        from mauvealigner_tpu_torch.tools.manipulate import coordinate_translate
+
+        res = coordinate_translate(ivl, a.seq, a.position)
+        print("unaligned" if res is None else f"interval {res[0]} column {res[1]}")
+        return 0
+    if not a.coords:
+        p.error("a coordinate file or --seq/--position is required")
+    from mauvealigner_tpu_torch.analysis.score_alignment import _interval_positions
+
+    toks = open(a.coords).read().split()
+    pos_cache: dict = {}
+    for block_id, col in zip(toks[::2], toks[1::2]):
+        k, c = int(block_id), int(col)
+        iv = ivl.intervals[k]
+        row = []
+        for s in range(iv.n_seqs):
+            if (k, s) not in pos_cache:
+                pos_cache[(k, s)] = _interval_positions(iv, s)
+            p_arr = pos_cache[(k, s)]
+            v = int(abs(p_arr[c])) if 0 <= c < iv.n_cols else 0
+            row.append(str(v))
+        print("\t".join(row))
+    return 0
+
+
+
+# ---------------------------------------------------------------- backbone
+
+@tool("bbFilter")
+def bb_filter_cli(argv: List[str]) -> int:
+    p = argparse.ArgumentParser(prog="bbFilter")
+    p.add_argument("backbone")
+    p.add_argument("output")
+    p.add_argument("--min-length", type=int, default=20)
+    p.add_argument("--independence", type=int, default=0)
+    p.add_argument("--format", choices=["backbone", "beast", "genoplast"], default="backbone")
+    p.add_argument("--names", default="")
+    a = p.parse_args(argv)
+    from mauvealigner_tpu_torch.analysis.backbone import read_backbone_seq_file, write_backbone_seq_file
+    from mauvealigner_tpu_torch.tools.backbone_tools import (
+        bb_filter,
+        presence_absence_matrix,
+        write_beast_xml,
+        write_genoplast,
+    )
+
+    from mauvealigner_tpu_torch.tools.backbone_tools import add_unique_segments_rows
+
+    rows = read_backbone_seq_file(a.backbone)
+    n_seqs = len(rows[0]) // 2 if rows else 0
+    # reference order: add genome-unique segments, then the short filter
+    # (src/bbFilter.cpp:90-96)
+    rows = add_unique_segments_rows(rows)
+    filtered = bb_filter(rows, a.min_length, a.independence)
+    names = a.names.split(",") if a.names else [f"seq{i}" for i in range(n_seqs)]
+    with open_out(a.output) as fh:
+        if a.format == "backbone":
+            write_backbone_seq_file(filtered, fh, n_seqs)
+        elif a.format == "beast":
+            write_beast_xml(
+                presence_absence_matrix(filtered, n_seqs, informative_only=True),
+                names, fh,
+            )
+        else:
+            write_genoplast(
+                presence_absence_matrix(filtered, n_seqs, informative_only=True),
+                names, fh,
+            )
+    return 0
+
+
+@tool("backbone_global_to_local")
+def backbone_global_to_local_cli(argv: List[str]) -> int:
+    p = argparse.ArgumentParser(prog="backbone_global_to_local")
+    p.add_argument("backbone")
+    p.add_argument("output")
+    p.add_argument("seq_files", nargs="+")
+    a = p.parse_args(argv)
+    from mauvealigner_tpu_torch.analysis.backbone import read_backbone_seq_file
+    from mauvealigner_tpu_torch.tools.backbone_tools import backbone_global_to_local
+
+    rows = read_backbone_seq_file(a.backbone)
+    genomes = load_genomes(a.seq_files)
+    local = backbone_global_to_local(rows, genomes)
+    with open_out(a.output) as fh:
+        # reference format: per seq `c1:start<TAB>c2:end`
+        # (src/backbone_global_to_local.cpp:53-57)
+        for row in local:
+            fh.write(
+                "\t".join(f"{ci}:{l}\t{cj}:{r}" for ci, l, cj, r in row) + "\n"
+            )
+    return 0
+
+
+def _backbone_coverage_report(ivl: IntervalList, min_bb: int, max_gap: int,
+                              lcb_stats: bool) -> int:
+    """Shared body of calculateBackboneCoverage/2
+    (src/calculateBackboneCoverage.cpp:95-138,
+    src/calculateBackboneCoverage2.cpp:58-125)."""
+    from mauvealigner_tpu_torch.analysis.distance import backbone_identity_matrix
+    from mauvealigner_tpu_torch.analysis.islands import simple_find_backbone
+
+    n = ivl.n_seqs
+    if lcb_stats:
+        lens = np.array([iv.seq_lengths() for iv in ivl.intervals], np.float64)
+        avg_cov = 0.0
+        for s in range(n):
+            cur = float(lens[:, s].sum()) if len(lens) else 0.0
+            glen = len(ivl.genomes[s]) or 1
+            print(f"Genome {s} coverage is: {cur:g} / {glen} = {cur / glen:g}")
+            avg_cov += cur / glen
+        print(f"Average coverage = {avg_cov / n:g}")
+        if len(lens):
+            avg_lcb = float(lens.mean())
+            var = float(((lens - avg_lcb) ** 2).sum() / max(lens.size - 1, 1))
+            print(f"Avg lcb len: {avg_lcb:g}")
+            print(f"variance: {var:g}")
+            print(f"std dev: {var ** 0.5:g}")
+    segs = simple_find_backbone(ivl, min_bb, max_gap)
+    print(f"There are {len(segs)} backbone segments")
+    total_bb = np.zeros(n, np.int64)
+    for seg in segs:
+        seg_lens = np.abs(seg.rights) - np.abs(seg.lefts) + 1
+        total_bb += np.where(seg.lefts != 0, seg_lens, 0)
+    for s in range(n):
+        print(f"seq {s} backbone: {int(total_bb[s])}")
+    print(f"Average: {int(total_bb.mean()) if n else 0}")
+    print("Identity matrix: ")
+    ident = backbone_identity_matrix(ivl, ivl.genomes, segs)
+    for i in range(n):
+        print("\t".join(f"{ident[i, j]:g}" for j in range(n)))
+    return 0
+
+
+@tool("calculateBackboneCoverage")
+def calculate_backbone_coverage_cli(argv: List[str]) -> int:
+    p = argparse.ArgumentParser(
+        prog="calculateBackboneCoverage",
+        description="Backbone coverage statistics of an alignment "
+        "(reference: src/calculateBackboneCoverage.cpp; usage "
+        "<alignment> <min bb length> <max bb gap> <seq1>...<seqN>).  "
+        "With a .backbone rows file as the first arg, prints per-genome "
+        "row coverage instead (--rows mode shortcut).",
+    )
+    p.add_argument("alignment")
+    p.add_argument("rest", nargs="*",
+                   help="<min bb length> <max bb gap> <seq files...>, or "
+                   "just <seq files...> in rows mode")
+    a = p.parse_args(argv)
+    if a.rest and a.rest[0].lstrip("-").isdigit():
+        a.min_bb_length = int(a.rest[0])
+        a.max_gap_length = int(a.rest[1]) if len(a.rest) > 1 and a.rest[1].lstrip("-").isdigit() else None
+        a.seq_files = a.rest[2:] if a.max_gap_length is not None else a.rest[1:]
+    else:
+        a.min_bb_length = None
+        a.max_gap_length = None
+        a.seq_files = a.rest
+    if a.min_bb_length is None:
+        # rows-file mode: per-genome coverage fractions
+        from mauvealigner_tpu_torch.analysis.backbone import read_backbone_seq_file
+        from mauvealigner_tpu_torch.tools.backbone_tools import backbone_coverage
+
+        genomes = load_genomes(a.seq_files)
+        cov = backbone_coverage(
+            read_backbone_seq_file(a.alignment), [len(g) for g in genomes]
+        )
+        for i, c in enumerate(cov):
+            print(f"seq{i}\t{c:.6f}")
+        return 0
+    ivl = _read_alignment(a.alignment, a.seq_files)
+    return _backbone_coverage_report(
+        ivl, a.min_bb_length, a.max_gap_length or 50, lcb_stats=False
+    )
+
+
+@tool("calculateBackboneCoverage2")
+def calculate_backbone_coverage2_cli(argv: List[str]) -> int:
+    p = argparse.ArgumentParser(
+        prog="calculateBackboneCoverage2",
+        description="Backbone + LCB coverage statistics of an XMFA "
+        "(reference: src/calculateBackboneCoverage2.cpp; usage "
+        "<XMFA> <min bb length> <max bb gap>)",
+    )
+    p.add_argument("alignment")
+    p.add_argument("min_bb_length", type=int)
+    p.add_argument("max_gap_length", type=int)
+    p.add_argument("seq_files", nargs="*")
+    a = p.parse_args(argv)
+    ivl = _read_alignment(a.alignment, a.seq_files)
+    return _backbone_coverage_report(
+        ivl, a.min_bb_length, a.max_gap_length, lcb_stats=True
+    )
+
+
+@tool("calculateCoverage")
+def calculate_coverage_cli(argv: List[str]) -> int:
+    p = argparse.ArgumentParser(
+        prog="calculateCoverage",
+        description="Per-interval per-genome aligned lengths (reference: "
+        "src/calculateCoverage.cpp:70-77), plus a per-genome coverage "
+        "fraction summary",
+    )
+    p.add_argument("alignment")
+    p.add_argument("seq_files", nargs="*")
+    a = p.parse_args(argv)
+    from mauvealigner_tpu_torch.analysis.islands import coverage_fraction
+
+    ivl = _read_alignment(a.alignment, a.seq_files)
+    for k, iv in enumerate(ivl.intervals):
+        lens = "\t".join(str(int(l)) for l in iv.seq_lengths())
+        print(f"Interval {k}\t{lens}")
+    cov = coverage_fraction(ivl, [len(g) for g in ivl.genomes])
+    for i, c in enumerate(cov):
+        print(f"seq{i}\t{c:.6f}")
+    return 0
+
+
+def _backbone_region_list(ivl: IntervalList, min_bb: int, max_gap: int) -> IntervalList:
+    """IntervalList of simpleFindBackbone(min_bb, max_gap) column slices
+    (the backbone_ivs construction, src/extractBackbone.cpp:63-71)."""
+    from mauvealigner_tpu_torch.analysis.islands import simple_find_backbone
+
+    segs = simple_find_backbone(ivl, min_bb, max_gap)
+    return IntervalList(
+        genomes=ivl.genomes,
+        intervals=[
+            ivl.intervals[s.interval_index].column_slice(s.col_start, s.col_end)
+            for s in segs
+        ],
+        seq_filenames=list(ivl.seq_filenames),
+    )
+
+
+@tool("extractBackbone")
+def extract_backbone_cli(argv: List[str]) -> int:
+    p = argparse.ArgumentParser(
+        prog="extractBackbone",
+        description="Extract simpleFindBackbone regions of an alignment "
+        "into a backbone XMFA (reference: src/extractBackbone.cpp; usage "
+        "<source sequences> <source alignment> <min bb length> "
+        "<max bb gap> <output>).  With a .backbone rows file instead of "
+        "an alignment, writes the raw segment sequences (--rows mode).",
+    )
+    p.add_argument("seqs", help="source sequence file(s), comma-separated")
+    p.add_argument("alignment")
+    p.add_argument("min_bb_length", type=int)
+    p.add_argument("max_gap_length", type=int)
+    p.add_argument("output")
+    a = p.parse_args(argv)
+    ivl = _read_alignment(a.alignment, a.seqs.split(","))
+    _backbone_region_list(ivl, a.min_bb_length, a.max_gap_length).write_xmfa(a.output)
+    return 0
+
+
+@tool("extractBackbone2")
+def extract_backbone2_cli(argv: List[str]) -> int:
+    p = argparse.ArgumentParser(
+        prog="extractBackbone2",
+        description="extractBackbone over a Mauve .mln interval file "
+        "(reference: src/extractBackbone2.cpp; usage <mauve alignment> "
+        "<min bb length> <max bb gap> <output .mln>)",
+    )
+    p.add_argument("alignment", help=".mln interval file")
+    p.add_argument("min_bb_length", type=int)
+    p.add_argument("max_gap_length", type=int)
+    p.add_argument("output")
+    p.add_argument("seq_files", nargs="*")
+    a = p.parse_args(argv)
+    from mauvealigner_tpu_torch.core.mln import read_interval_list, write_interval_list
+
+    ivl = read_interval_list(a.alignment, load_genomes(a.seq_files) if a.seq_files else None)
+    write_interval_list(
+        _backbone_region_list(ivl, a.min_bb_length, a.max_gap_length), a.output
+    )
+    return 0
+
+
+@tool("createBackboneMFA")
+def create_backbone_mfa_cli(argv: List[str]) -> int:
+    p = argparse.ArgumentParser(
+        prog="createBackboneMFA",
+        description="Concatenate the aligned rows of every --stride'th "
+        "interval into one superalignment MFA (reference: "
+        "src/createBackboneMFA.cpp; it hard-codes a 1-in-30 LCB "
+        "subsample, :31-32).  With --rows, instead writes raw backbone "
+        "segment sequences from a .backbone rows file.",
+    )
+    p.add_argument("alignment", help="interval file (.mln) or XMFA")
+    p.add_argument("output")
+    p.add_argument("--stride", type=int, default=30,
+                   help="take every Nth interval (reference: 30)")
+    p.add_argument("--rows", default="",
+                   help=".backbone rows file (raw-sequence mode)")
+    p.add_argument("seq_files", nargs="*")
+    a = p.parse_args(argv)
+    if a.rows:
+        from mauvealigner_tpu_torch.analysis.backbone import read_backbone_seq_file
+        from mauvealigner_tpu_torch.tools.backbone_tools import write_backbone_mfa
+
+        with open_out(a.output) as fh:
+            write_backbone_mfa(
+                read_backbone_seq_file(a.rows), load_genomes(a.seq_files), fh
+            )
+        return 0
+    if a.alignment.endswith(".mln"):
+        from mauvealigner_tpu_torch.core.mln import read_interval_list
+
+        ivl = read_interval_list(
+            a.alignment, load_genomes(a.seq_files) if a.seq_files else None
+        )
+    else:
+        ivl = _read_alignment(a.alignment, a.seq_files)
+    rows = [[] for _ in range(ivl.n_seqs)]
+    for k, iv in enumerate(ivl.intervals):
+        if k % max(a.stride, 1) != 0:
+            continue
+        for s in range(ivl.n_seqs):
+            rows[s].append(iv.aligned_text(ivl.genomes, s))
+    with open_out(a.output) as fh:
+        for s, chunks in enumerate(rows):
+            write_fasta_row(fh, str(s), "".join(chunks))
+    return 0
+
+
+@tool("unalign")
+def unalign_cli(argv: List[str]) -> int:
+    p = argparse.ArgumentParser(
+        prog="unalign",
+        description="Recover the input sequences from an alignment: per "
+        "genome, concatenate its blocks in coordinate order (reverse "
+        "blocks revcomped) and strip gaps (reference: src/unalign.cpp "
+        "— \"you've got an alignment but you just can't seem to find "
+        "the sequences that went into it\").  With --bbcols, instead "
+        "un-aligns non-backbone (island) columns from the XMFA.",
+    )
+    p.add_argument("alignment")
+    p.add_argument("output", help="output Multi-FastA")
+    p.add_argument("--bbcols", default="",
+                   help="backbone columns: island-removal mode")
+    p.add_argument("seq_files", nargs="*")
+    a = p.parse_args(argv)
+    ivl = _read_alignment(a.alignment, a.seq_files)
+    if a.bbcols:
+        from mauvealigner_tpu_torch.analysis.backbone import read_backbone_cols_file
+        from mauvealigner_tpu_torch.tools.manipulate import unalign_islands
+
+        unalign_islands(ivl, read_backbone_cols_file(a.bbcols)).write_xmfa(a.output)
+        return 0
+    from mauvealigner_tpu_torch.tools.manipulate import unalign_sequences
+
+    with open_out(a.output) as fh:
+        unalign_sequences(ivl, fh)
+    return 0
+
+
+@tool("getOrthologList")
+def get_ortholog_list_cli(argv: List[str]) -> int:
+    p = argparse.ArgumentParser(
+        prog="getOrthologList",
+        description="Positional ortholog CDS lists + per-CDS alignments "
+        "(reference: src/getOrthologList.cpp; usage <xmfa> <backbone> "
+        "<reference genome #> <ortholog output> <CDS alignment base>)",
+    )
+    p.add_argument("alignment")
+    p.add_argument("backbone")
+    p.add_argument("output")
+    p.add_argument("--ref-genome", type=int, default=0,
+                   help="annotated reference genome index (reference arg 3)")
+    p.add_argument("--cds-base", default="",
+                   help="per-CDS alignment filename base (reference arg 5)")
+    p.add_argument("seq_files", nargs="+")
+    a = p.parse_args(argv)
+    from mauvealigner_tpu_torch.analysis.backbone import read_backbone_seq_file
+    from mauvealigner_tpu_torch.tools.backbone_tools import ortholog_list
+
+    ivl = _read_alignment(a.alignment, a.seq_files)
+    rows = read_backbone_seq_file(a.backbone)
+    orthos = ortholog_list(ivl, rows, a.ref_genome, a.cds_base)
+    with open_out(a.output) as fh:
+        fh.write("OrthoID" + "".join(f"\tGI_in_Genome_{s}" for s in range(ivl.n_seqs))
+                 + "\tCoverage\tIdentity\tRearranged\n")
+        for o in orthos:
+            if not o["complete"]:
+                continue
+            gis = "\t".join(
+                o["orthologs"][s][2] or "?" for s in range(ivl.n_seqs)
+            )
+            fh.write(f"{o['id']}\t{gis}\t{o['coverage']:g}\t{o['identity']:g}"
+                     f"\t{'*' if o['rearranged'] else ''}\n")
+    return 0
+
+
+@tool("randomGeneSample")
+def random_gene_sample_cli(argv: List[str]) -> int:
+    p = argparse.ArgumentParser(
+        prog="randomGeneSample",
+        description="Random sample of gene alignments from xmfa+backbone "
+        "(reference: src/randomGeneSample.cpp; usage <xmfa> <backbone> "
+        "<sample genome> <number of genes> <output base> [seed]).  Per "
+        "sampled CDS fully inside N-way backbone, writes <base>_<i>.fas.",
+    )
+    p.add_argument("alignment")
+    p.add_argument("backbone")
+    p.add_argument("output", help="output base name for <base>_<i>.fas")
+    p.add_argument("--count", type=int, required=True,
+                   help="number of genes (reference arg 4)")
+    p.add_argument("--sample-genome", type=int, default=0,
+                   help="annotated genome index (reference arg 3)")
+    p.add_argument("--seed", type=int, default=37,
+                   help="random seed (reference arg 6)")
+    p.add_argument("seq_files", nargs="+")
+    a = p.parse_args(argv)
+    from mauvealigner_tpu_torch.analysis.backbone import read_backbone_seq_file
+    from mauvealigner_tpu_torch.tools.backbone_tools import random_gene_alignments
+
+    ivl = _read_alignment(a.alignment, a.seq_files)
+    rows = read_backbone_seq_file(a.backbone)
+    sample = random_gene_alignments(
+        ivl, rows, a.sample_genome, a.count, a.output, a.seed
+    )
+    for o in sample:
+        print(f"{o['name']}\t{o['start']}\t{o['end']}\t{o['file']}")
+    return 0
+
+
+@tool("pairCompare")
+def pair_compare_cli(argv: List[str]) -> int:
+    p = argparse.ArgumentParser(
+        prog="pairCompare",
+        description="Per-pair NT identity, backbone %, LCB count "
+        "(reference: src/pairCompare.cpp).  With a bare sequence count, "
+        "sweeps all_pairs/pair_I.J.xmfa (reference mode; the reference's "
+        "seqI loop starting at 10 is a leftover bug, not replicated); "
+        "with file arguments, reports per file.",
+    )
+    p.add_argument("alignments", nargs="+",
+                   help="sequence count OR pairwise xmfa files")
+    p.add_argument("--seqs", nargs="*", default=[],
+                   help="sequence files (when the XMFA's #SequenceFile "
+                   "paths do not resolve)")
+    a = p.parse_args(argv)
+    from mauvealigner_tpu_torch.tools.backbone_tools import pair_compare
+
+    if len(a.alignments) == 1 and a.alignments[0].isdigit():
+        n = int(a.alignments[0])
+        print("SeqI\tSeqJ\tNTidentity\tAvgBBpct\tLCB count")
+        for i in range(n):
+            for j in range(i + 1, n):
+                path = os.path.join("all_pairs", f"pair_{i}.{j}.xmfa")
+                if not os.path.exists(path):
+                    continue
+                ivl = _read_alignment(path, a.seqs)
+                st = pair_compare(ivl, ivl.genomes)
+                print(f"{i}\t{j}\t{st['identity']:g}"
+                      f"\t{st['backbone_fraction']:g}\t{st['lcb_count']}")
+        return 0
+    for path in a.alignments:
+        ivl = _read_alignment(path, a.seqs)
+        stats = pair_compare(ivl, ivl.genomes)
+        print(f"{path}\t{json.dumps(stats)}")
+    return 0
+
+
+# ---------------------------------------------------------------- contigs
+
+@tool("sortContigs")
+def sort_contigs_cli(argv: List[str]) -> int:
+    p = argparse.ArgumentParser(
+        prog="sortContigs",
+        description="Reorder/orient draft contigs against a reference "
+        "(reference: src/sortContigs.cpp)",
+    )
+    p.add_argument("reference")
+    p.add_argument("draft")
+    p.add_argument("--output", default="")
+    p.add_argument("--seed-size", type=int, default=0)
+    p.add_argument("--device", default="cuda",
+                   help="torch device of the anchor search: cuda or cpu (no "
+                   "fallback between them)")
+    a = p.parse_args(argv)
+    from mauvealigner_tpu_torch.genome import write_fasta
+    from mauvealigner_tpu_torch.models.aligner import AlignerOptions, MauveAligner
+    from mauvealigner_tpu_torch.tools.manipulate import contig_placements_from_lcbs, sort_contigs
+
+    aligner = MauveAligner(
+        AlignerOptions(seed_size=a.seed_size, gapped=False, recursive=False,
+                       device=a.device)
+    )
+    ref = load_genome(a.reference)
+    draft = load_genome(a.draft)
+    ml = aligner.find_mums([ref, draft])
+    _, lcbs = aligner.determine_lcbs([ref, draft], ml)
+    placements = contig_placements_from_lcbs(draft, lcbs, draft_seq_index=1)
+    reordered, log = sort_contigs(draft, placements)
+    out = a.output or (a.draft + ".reordered")
+    write_fasta(reordered, out)
+    for name, strand in log:
+        print(f"{name}\t{'+' if strand >= 0 else '-'}{'(unplaced)' if strand == 0 else ''}")
+    return 0
+
+
+# ---------------------------------------------------------------- trees
+
+@tool("rootTrees")
+def root_trees_cli(argv: List[str]) -> int:
+    p = argparse.ArgumentParser(prog="rootTrees")
+    p.add_argument("trees", help="file with newick trees, one per line")
+    p.add_argument("output")
+    p.add_argument("--outgroup", required=True, help="comma-separated taxa")
+    a = p.parse_args(argv)
+    from mauvealigner_tpu_torch.analysis.tree import parse_newick, write_newick
+    from mauvealigner_tpu_torch.tools.tree_tools import root_trees
+
+    trees = [
+        parse_newick(line)
+        for line in open(a.trees)
+        if line.strip() and not line.startswith("#")
+    ]
+    rooted = root_trees(trees, set(a.outgroup.split(",")))
+    with open_out(a.output) as fh:
+        for t in rooted:
+            fh.write(write_newick(t) + "\n")
+    return 0
+
+
+@tool("uniquifyTrees")
+def uniquify_trees_cli(argv: List[str]) -> int:
+    p = argparse.ArgumentParser(prog="uniquifyTrees")
+    p.add_argument("trees")
+    p.add_argument("output")
+    a = p.parse_args(argv)
+    from mauvealigner_tpu_torch.analysis.tree import parse_newick, write_newick
+    from mauvealigner_tpu_torch.tools.tree_tools import parse_nexus_trees, uniquify_trees
+
+    text = open(a.trees).read()
+    if "#NEXUS" in text.upper() or "begin trees" in text.lower():
+        trees = [t for _, t in parse_nexus_trees(text)[0]]
+    else:
+        trees = [parse_newick(l) for l in text.splitlines() if l.strip()]
+    unique = uniquify_trees(trees)
+    with open_out(a.output) as fh:
+        for t in unique:
+            fh.write(write_newick(t) + "\n")
+    return 0
+
+
+@tool("extractBCITrees")
+def extract_bci_trees_cli(argv: List[str]) -> int:
+    p = argparse.ArgumentParser(
+        prog="extractBCITrees",
+        description="Sum and normalize topology posteriors from MrBayes "
+        ".trprobs files; keep the Bayes credible set, subsampling when "
+        "over the tree budget (reference: src/extractBCITrees.cpp)",
+    )
+    p.add_argument("trprobs", nargs="+", help="one or more .trprobs files")
+    p.add_argument("output")
+    p.add_argument("--credibility", type=float, default=0.95,
+                   help="BCI threshold (reference arg 2; 0.9 suggested)")
+    p.add_argument("--max-trees", type=int, default=0,
+                   help="subsample to this many trees (reference arg 3)")
+    p.add_argument("--seed", type=int, default=37,
+                   help="subsample RNG seed (reference arg 1)")
+    a = p.parse_args(argv)
+    from mauvealigner_tpu_torch.analysis.tree import write_newick
+    from mauvealigner_tpu_torch.tools.tree_tools import aggregate_bci_trees
+
+    sampled = aggregate_bci_trees(
+        [open(f).read() for f in a.trprobs], a.credibility, a.max_trees, a.seed
+    )
+    with open_out(a.output) as fh:
+        for tree, weight in sampled:
+            fh.write(f"[p={weight:g}] {write_newick(tree)}\n")
+    return 0
+
+
+@tool("checkForLGT")
+def check_for_lgt_cli(argv: List[str]) -> int:
+    p = argparse.ArgumentParser(prog="checkForLGT")
+    p.add_argument("trees")
+    p.add_argument("--group-a", required=True)
+    p.add_argument("--group-b", required=True)
+    a = p.parse_args(argv)
+    from mauvealigner_tpu_torch.analysis.tree import parse_newick
+    from mauvealigner_tpu_torch.tools.tree_tools import check_for_lgt
+
+    ga, gb = set(a.group_a.split(",")), set(a.group_b.split(","))
+    for line in open(a.trees):
+        if not line.strip():
+            continue
+        t = parse_newick(line)
+        print("LGT" if check_for_lgt(t, ga, gb) else "clean")
+    return 0
+
+
+# ---------------------------------------------------------------- dispatcher
+
+
+# ---------------------------------------------------------------- dispatcher
 
 def main(argv: List[str] = None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)

@@ -8,17 +8,22 @@ pair_accuracy scores every (ancestor, descendant) projection against the
 simulation truths.  Both read the result by attribute and write through the
 result's own interval list; repeatoire_digest writes through the writers of
 the repeatoire module it is given; mauve_aligner_digest reads the files a
-mauveAligner command line wrote (CONFIG2_ARGS).  So the same code digests a
-result of the JAX package (scripts/make_port_golden.py) and of the port
-(chip_smoke.py).
+mauveAligner command line wrote (CONFIG2_ARGS).  sort_drafts runs the
+draft workflow's front half (config 5) with the aligner and manipulate
+modules it is given, draft_digest adds its placement logs to the
+progressive digest, and draft_cli_digest runs sortContigs and
+uniqueMerCount through the command line it is given.  So the same code
+digests a result of the JAX package (scripts/make_port_golden.py) and of
+the port (chip_smoke.py).
 """
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import io
 import os
-from typing import Dict, List, Sequence
+from typing import Callable, Dict, List, Sequence
 
 import numpy as np
 
@@ -160,3 +165,84 @@ def mauve_aligner_digest(directory: str) -> Dict:
         "n_backbone": max(len(texts["backbone"].decode().splitlines()) - 1, 0),
         **{f"{k}_sha256": hashlib.sha256(v).hexdigest() for k, v in texts.items()},
     }
+
+
+# BASELINE config 5, the draft workflow (scripts/bench_configs.py config5):
+# the fields a golden file records beyond progressive_digest's
+DRAFT_KEYS = ("placement_logs", "contigs_placed", "reordered_sha256", "bases_accounted")
+
+
+def bases_accounted(ivl) -> bool:
+    """Every genome's bases lie in exactly as many aligned cells as it is
+    long (tests/test_draft_workflow.py's check)."""
+    return all(
+        sum(int(iv.aln[s].sum()) for iv in ivl.intervals if iv.starts[s] != 0) == len(g)
+        for s, g in enumerate(ivl.genomes)
+    )
+
+
+def sort_drafts(ref, drafts, aligner_mod, manipulate_mod, **options):
+    """The workflow's sequential front half (scripts/bench_configs.py
+    config5, front_half_sequential): per draft, a MauveAligner with
+    gapped=False, recursive=False, use_sml_cache=False (and `options`)
+    finds the anchors of [ref, draft] and its LCBs, and sort_contigs
+    reorders and orients the draft's contigs by contig_placements_from_lcbs.
+    aligner_mod / manipulate_mod: either package's models.aligner and
+    tools.manipulate.  Returns (reordered drafts, placement logs)."""
+    reordered, logs = [], []
+    for d in drafts:
+        al = aligner_mod.MauveAligner(aligner_mod.AlignerOptions(
+            gapped=False, recursive=False, use_sml_cache=False, **options))
+        ml = al.find_mums([ref, d])
+        _, lcbs = al.determine_lcbs([ref, d], ml)
+        placements = manipulate_mod.contig_placements_from_lcbs(d, lcbs, draft_seq_index=1)
+        fixed, log = manipulate_mod.sort_contigs(d, placements)
+        reordered.append(fixed)
+        logs.append(log)
+    return reordered, logs
+
+
+def draft_digest(reordered, logs, res, branch: str, bbcols_name: str) -> Dict:
+    """progressive_digest of the workflow's ProgressiveMauve result, with
+    each draft's placement log ([contig name, strand], strand 0 for an
+    unplaced contig), the count of placed contigs, the sha256 of every
+    reordered draft and whether the alignment accounts for every base."""
+    return {
+        "placement_logs": [[[name, int(strand)] for name, strand in log] for log in logs],
+        "contigs_placed": sum(1 for log in logs for _, strand in log if strand != 0),
+        "reordered_sha256": genome_sha256(reordered),
+        "bases_accounted": bases_accounted(res.interval_list),
+        **progressive_digest(res, branch, bbcols_name),
+    }
+
+
+DRAFT_CLI_KEYS = ("sort_contigs_stdout", "sort_contigs_fasta_sha256", "unique_mer_count")
+
+
+def draft_cli_digest(cli: Callable[[List[str]], int], ref, draft, directory: str,
+                     extra: Sequence[str] = ()) -> Dict:
+    """sortContigs of `draft` against `ref` and uniqueMerCount of each,
+    through the command line `cli` (either package's tools.cli.main; the
+    port's takes --device in `extra`), in `directory`: the FASTA files
+    (written by the port's writer, one record per contig) ref.fa and
+    draft.fa, sortContigs' printed log and the sha256 of the FASTA it
+    writes, and each file's printed unique-mer count."""
+    from mauvealigner_tpu_torch.genome.fasta import write_fasta
+
+    def run(argv) -> str:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli([*argv, *extra])
+        if rc != 0:
+            raise RuntimeError(f"{argv[0]} returned {rc}")
+        return buf.getvalue()
+
+    with contextlib.chdir(directory):
+        write_fasta(ref, "ref.fa")
+        write_fasta(draft, "draft.fa")
+        log = run(["sortContigs", "ref.fa", "draft.fa", "--output=draft.sorted.fa"])
+        with open("draft.sorted.fa", "rb") as fh:
+            fasta_sha = hashlib.sha256(fh.read()).hexdigest()
+        counts = {f: int(run(["uniqueMerCount", f])) for f in ("ref.fa", "draft.fa")}
+    return {"sort_contigs_stdout": log, "sort_contigs_fasta_sha256": fasta_sha,
+            "unique_mer_count": counts}

@@ -15,7 +15,7 @@ from typing import List, Tuple
 import numpy as np
 
 from mauvealigner_tpu_torch.core.interval import Interval, IntervalList
-from mauvealigner_tpu_torch.genome.sequence import Genome, revcomp_ascii
+from mauvealigner_tpu_torch.genome.sequence import Contig, Genome, revcomp_ascii
 
 _BASES = np.frombuffer(b"ACGT", np.uint8)
 
@@ -177,3 +177,41 @@ def planted_repeats(spacer_scale: int = 1, seed: int = 37) -> Genome:
             parts.append(unit2.copy())
             parts.append(random_genome(rng, 10_000 * spacer_scale).seq)
     return Genome(np.concatenate(parts), name="repeats")
+
+
+def draft_genomes(n: int, k: int, n_contigs: int) -> Tuple[Genome, List[Genome]]:
+    """The draft-genome workflow's inputs, as scripts/bench_configs.py
+    config5 draws them (seed 37, the same draws in the same order): a
+    random reference of n bases named "ref", then per draft d0 .. d{k-2} a
+    descendant (sub 0.01, indel 0.0005) cut at n_contigs - 1 sorted
+    distinct points of [2000, n - 2000), each piece reverse-complemented
+    with probability 0.4, and the pieces shuffled into a multi-contig
+    genome (contig names d<i>_c<j> in cut order).  Config 5 is (150_000,
+    8, 6).  Returns (reference, drafts)."""
+    rng = np.random.default_rng(37)
+    ref = random_genome(rng, n, name="ref")
+
+    def make_draft(evolved: Genome, name: str) -> Genome:
+        cuts = np.sort(
+            rng.choice(np.arange(2000, n - 2000), size=n_contigs - 1, replace=False)
+        )
+        edges = np.concatenate([[0], cuts, [len(evolved)]])
+        pieces = []
+        for i, (a, b) in enumerate(zip(edges[:-1], edges[1:])):
+            chunk = evolved.seq[a:b]
+            if rng.random() < 0.4:
+                chunk = revcomp_ascii(chunk)
+            pieces.append((f"{name}_c{i}", chunk))
+        contigs, parts, off = [], [], 0
+        for idx in rng.permutation(len(pieces)):
+            cname, chunk = pieces[idx]
+            contigs.append(Contig(cname, len(chunk), off))
+            parts.append(chunk)
+            off += len(chunk)
+        return Genome(np.concatenate(parts), contigs=contigs, name=name)
+
+    drafts = []
+    for i in range(k - 1):
+        ev, _ = evolve(ref, rng, sub_rate=0.01, ins_rate=0.0005, del_rate=0.0005)
+        drafts.append(make_draft(ev, f"d{i}"))
+    return ref, drafts

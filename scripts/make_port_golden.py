@@ -32,10 +32,23 @@ mauvealigner_tpu_torch/data/, which chip_smoke.py holds the port to:
         XMFA, XML, procrast.highest, --score-out and --seeds texts (about
         40 s);
   4big  config4_big_golden.json: the same at bacterial scale, every spacer
-        4x as long (planted_repeats(4), 926 kbp; about 80 s).
+        4x as long (planted_repeats(4), 926 kbp; about 80 s);
+  5     config5_golden.json: BASELINE config 5, the draft workflow of
+        scripts/bench_configs.py config5 (utils/simulate.draft_genomes: a
+        150 kbp reference and 7 drafts of 6 contigs, seed 37): each draft
+        through MauveAligner(gapped=False, recursive=False) and sortContigs
+        against the reference, then ProgressiveMauve(use_sml_cache=False) of
+        the reference and the reordered drafts (utils/digest.sort_drafts):
+        genome sha256, each draft's placement log, contigs placed, the
+        reordered drafts' sha256 and the progressive digest; plus the
+        sortContigs and uniqueMerCount command lines on the reference and
+        the first draft (utils/digest.draft_cli_digest);
+  5wide config5_wide_golden.json: the same workflow at BASELINE's "20+
+        drafts": a 500 kbp reference and 20 drafts of 20 contigs (one
+        contig per 25 kbp, config 5's density), without the command lines.
 
-Usage:  JAX_PLATFORMS=cpu python scripts/make_port_golden.py [1] [2] [3] [tree] [4] [4big]
-        (no argument: all six)
+Usage:  JAX_PLATFORMS=cpu python scripts/make_port_golden.py [1] [2] [3] [tree] [4] [4big] [5] [5wide]
+        (no argument: all eight)
 """
 
 import argparse
@@ -227,13 +240,74 @@ def config4_big() -> None:
                 "(926 kbp), default RepeatoireOptions, with --seeds")
 
 
+def _jax_genome(g):
+    """A JAX-package Genome with the port genome's bases and contig table."""
+    from mauvealigner_tpu.genome.sequence import Contig, Genome
+
+    return Genome(g.seq.copy(), contigs=[Contig(c.name, c.length, c.offset) for c in g.contigs],
+                  name=g.name)
+
+
+def _draft_workflow(name: str, label: str, n: int, k: int, n_contigs: int,
+                    with_cli: bool) -> None:
+    from mauvealigner_tpu.models import aligner as jax_aligner
+    from mauvealigner_tpu.tools import manipulate
+    from mauvealigner_tpu.tools.cli import main as jax_cli
+
+    t0 = time.perf_counter()
+    pref, pdrafts = port_simulate.draft_genomes(n, k, n_contigs)
+    ref, drafts = _jax_genome(pref), [_jax_genome(d) for d in pdrafts]
+    print(f"{label}: genomes built in {time.perf_counter() - t0:.1f} s", file=sys.stderr)
+    t0 = time.perf_counter()
+    reordered, logs = digest.sort_drafts(ref, drafts, jax_aligner, manipulate)
+    front = time.perf_counter() - t0
+    timing.GLOBAL.reset()
+    res = ProgressiveMauve(ProgressiveOptions(use_sml_cache=False)).align([ref] + reordered)
+    seconds = time.perf_counter() - t0
+    branch = "tree" if "tree_progressive" in timing.GLOBAL.phases else "extant"
+    bbcols_name = name.replace("_golden.json", ".xmfa.bbcols")
+    golden = {
+        "config": label,
+        "reference": "mauvealigner_tpu (JAX) on the CPU",
+        "genome_sha256": digest.genome_sha256([ref] + drafts),
+        "genome_lengths": [len(g) for g in [ref] + drafts],
+        "bbcols_name": bbcols_name,
+        **digest.draft_digest(reordered, logs, res, branch, bbcols_name),
+    }
+    if with_cli:
+        with tempfile.TemporaryDirectory() as d:
+            golden["cli"] = digest.draft_cli_digest(jax_cli, pref, pdrafts[0], d)
+    _write(name, golden)
+    print(f"{label}: reference run took {seconds:.1f} s on the CPU (front half "
+          f"{front:.1f} s)", file=sys.stderr)
+
+
+def config5() -> None:
+    _draft_workflow(
+        "config5_golden.json",
+        "BASELINE config 5 (scripts/bench_configs.py config5): seed 37, "
+        "utils/simulate.draft_genomes(150_000, 8, 6); per draft MauveAligner("
+        "gapped=False, recursive=False, use_sml_cache=False) + sortContigs, then "
+        "ProgressiveOptions(use_sml_cache=False) of ref + reordered drafts",
+        150_000, 8, 6, with_cli=True)
+
+
+def config5_wide() -> None:
+    _draft_workflow(
+        "config5_wide_golden.json",
+        "config 5 at BASELINE's 20+ drafts: seed 37, utils/simulate.draft_genomes("
+        "500_000, 21, 20), the same workflow (a reference and 20 drafts of 20 "
+        "contigs, one per 25 kbp as in config 5)",
+        500_000, 21, 20, with_cli=False)
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("configs", nargs="*", choices=["1", "2", "3", "tree", "4", "4big"],
-                   default=[])
+    p.add_argument("configs", nargs="*",
+                   choices=["1", "2", "3", "tree", "4", "4big", "5", "5wide"], default=[])
     a = p.parse_args()
     run = {"1": config1, "2": config2, "3": config3, "tree": tree_branch, "4": config4,
-           "4big": config4_big}
+           "4big": config4_big, "5": config5, "5wide": config5_wide}
     for c in a.configs or list(run):
         run[c]()
     return 0

@@ -1,14 +1,17 @@
 """Where a progressive run's time goes on the GPU, for the PyTorch port.
 
-Builds config 3 (9 x 250 kbp, scripts/bench_configs.py) or the 9 x 1 Mbp
-enterobacteria-like genomes of the tree-progressive branch, runs
-ProgressiveMauve on cuda:0 once to warm up (kernel build, allocator), then
-once under torch.profiler (CUDA activity).  Prints the per-phase host
-report, the kernels by device time, one line per Gotoh kernel (launches and
-device ms) and the device busy and idle shares of the profiled run, with
-the card's name and power limit.
+Builds config 3 (9 x 250 kbp, scripts/bench_configs.py), the 9 x 1 Mbp
+enterobacteria-like genomes of the tree-progressive branch, or config 5's
+draft workflow (a 150 kbp reference and 7 drafts of 6 contigs; 5wide: a
+500 kbp reference and 20 drafts of 20 contigs), runs it on cuda:0 once to
+warm up (kernel build, allocator), then once under torch.profiler (CUDA
+activity): ProgressiveMauve, for config 5 after the per-draft anchor search
+and sortContigs (utils/digest.sort_drafts).  Prints the per-phase host
+report (of the progressive run), the kernels by device time, one line per
+Gotoh kernel (launches and device ms) and the device busy and idle shares
+of the profiled run, with the card's name and power limit.
 
-Usage:  python scripts/profile_port_progressive.py [3|tree] [--trace PATH] [--root DIR]
+Usage:  python scripts/profile_port_progressive.py [3|tree|5|5wide] [--trace PATH] [--root DIR]
 
 `--root DIR` imports the port's package from DIR (another checkout, for
 example the parent commit unpacked into a git-ignored directory), so two
@@ -43,14 +46,35 @@ def genomes_of(config: str):
     return out
 
 
+def workload(config: str):
+    """A callable that runs the configuration once on cuda."""
+    from mauvealigner_tpu_torch.models import aligner
+    from mauvealigner_tpu_torch.models.progressive import ProgressiveMauve, ProgressiveOptions
+    from mauvealigner_tpu_torch.tools import manipulate
+    from mauvealigner_tpu_torch.utils import digest, simulate, timing
+
+    if config in ("5", "5wide"):
+        ref, drafts = (simulate.draft_genomes(150_000, 8, 6) if config == "5"
+                       else simulate.draft_genomes(500_000, 21, 20))
+        pm = ProgressiveMauve(ProgressiveOptions(use_sml_cache=False, device="cuda"))
+
+        def run():
+            reordered, _ = digest.sort_drafts(ref, drafts, aligner, manipulate, device="cuda")
+            timing.GLOBAL.reset()
+            pm.align([ref] + reordered)
+        return run
+    genomes = genomes_of(config)
+    pm = ProgressiveMauve(ProgressiveOptions(device="cuda"))
+    return lambda: pm.align(genomes)
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("config", nargs="?", default="3", choices=["3", "tree"])
+    p.add_argument("config", nargs="?", default="3", choices=["3", "tree", "5", "5wide"])
     p.add_argument("--trace", default="")
     p.add_argument("--root", default=os.path.join(os.path.dirname(__file__), ".."))
     a = p.parse_args()
     sys.path.insert(0, os.path.abspath(a.root))
-    from mauvealigner_tpu_torch.models.progressive import ProgressiveMauve, ProgressiveOptions
     from mauvealigner_tpu_torch.utils import timing
 
     if not torch.cuda.is_available():
@@ -61,14 +85,13 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip()
     print(card)
-    genomes = genomes_of(a.config)
-    pm = ProgressiveMauve(ProgressiveOptions(device="cuda"))
-    pm.align(genomes)  # warm-up
+    run = workload(a.config)
+    run()  # warm-up
     torch.cuda.synchronize()
     timing.GLOBAL.reset()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        pm.align(genomes)
+        run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     print(timing.GLOBAL.report().rstrip())

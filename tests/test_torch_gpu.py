@@ -417,3 +417,53 @@ def test_traceback_on_random_bytes(rng, cuda_device, M, N):
     o_k, c_k = gotoh_cuda.gotoh_traceback(*(t.to(cuda_device) for t in (dec, la, lb)))
     torch.cuda.synchronize()
     assert torch.equal(o_k.cpu(), o_p) and torch.equal(c_k.cpu(), c_p)
+
+
+@pytest.mark.parametrize("tool", ["sortContigs", "uniqueMerCount"])
+def test_device_subcommands_gpu_match_cpu(rng, cuda_device, tool, tmp_path):
+    """sortContigs (MauveAligner's anchor search on the card) and
+    uniqueMerCount (the K1 sort on the card) through the port's command
+    line: the same standard output and output file on cuda as on cpu."""
+    import contextlib
+
+    from mauvealigner_tpu_torch.genome import write_fasta
+    from mauvealigner_tpu_torch.tools.cli import main as cli
+
+    ref, drafts = simulate.draft_genomes(12_000, 2, 4)
+    write_fasta(ref, str(tmp_path / "ref.fa"))
+    write_fasta(drafts[0], str(tmp_path / "draft.fa"))
+    out = {}
+    for dev in ("cpu", str(cuda_device)):
+        argv = {"sortContigs": ["ref.fa", "draft.fa", f"--output={dev}.fa", "--seed-size=11"],
+                "uniqueMerCount": ["draft.fa", "--seed-weight=11"]}[tool]
+        buf = io.StringIO()
+        with contextlib.chdir(tmp_path), contextlib.redirect_stdout(buf):
+            assert cli([tool, *argv, f"--device={dev}"]) == 0
+        written = (tmp_path / f"{dev}.fa").read_bytes() if tool == "sortContigs" else b""
+        out[dev] = (buf.getvalue(), written)
+    assert out["cpu"] == out[str(cuda_device)] and out["cpu"][0].strip()
+
+
+def test_draft_workflow_gpu_matches_cpu(cuda_device):
+    """A 12 kbp reference and two 4-contig drafts through the draft
+    workflow (anchor search, sortContigs, ProgressiveMauve): the same
+    placement logs and XMFA on the GPU and CPU paths, every kernel
+    launched on the GPU."""
+    from mauvealigner_tpu_torch.models import aligner
+    from mauvealigner_tpu_torch.models.progressive import ProgressiveMauve, ProgressiveOptions
+    from mauvealigner_tpu_torch.tools import manipulate
+    from mauvealigner_tpu_torch.utils import digest
+
+    ref, drafts = simulate.draft_genomes(12_000, 3, 4)
+    out = {}
+    for dev in ("cpu", str(cuda_device)):
+        gotoh_cuda.reset_launches()
+        reordered, logs = digest.sort_drafts(ref, drafts, aligner, manipulate,
+                                             seed_size=11, device=dev)
+        res = ProgressiveMauve(ProgressiveOptions(seed_weight=11, use_sml_cache=False,
+                                                  device=dev)).align([ref] + reordered)
+        buf = io.StringIO()
+        res.interval_list.write_xmfa(buf)
+        out[dev] = (logs, buf.getvalue(), dict(gotoh_cuda.LAUNCHES))
+    assert out["cpu"][:2] == out[str(cuda_device)][:2]
+    assert min(out[str(cuda_device)][2].values()) > 0

@@ -26,6 +26,8 @@ from mauvealigner_tpu_torch.utils import simulate
 torch.set_num_threads(1)
 
 ALIGNERS = ("mauveAligner", "progressiveMauve")
+# subcommands with device work: the port's run takes --device=cpu
+DEVICE_TOOLS = (*ALIGNERS, "sortContigs", "uniqueMerCount")
 
 
 def _write_fasta(path, g: Genome, name: str) -> None:
@@ -37,7 +39,7 @@ def _run(cli, argv, tag: str):
     """One CLI call with every "{o}" in argv replaced by tag; returns (rc,
     standard output)."""
     argv = [a.replace("{o}", tag) for a in argv]
-    if tag == "t" and argv[0] in ALIGNERS:
+    if tag == "t" and argv[0] in DEVICE_TOOLS:
         argv.append("--device=cpu")
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
@@ -225,12 +227,14 @@ def test_mesh_devices_raise(three, tool):
 
 
 def test_tool_list(capsys):
+    """--list names all 51 subcommands, the JAX package's TOOLS name for
+    name, in the same order."""
+    from mauvealigner_tpu.tools.cli import TOOLS as JAX_TOOLS
+
     assert torch_cli(["--list"]) == 0
     listed = capsys.readouterr().out.split()[2:]
-    assert len(listed) == len(TOOLS) == 23
-    assert {"mauveAligner", "progressiveMauve", "repeatoire", "scoreAlignment", "evd",
-            "multiEVD", "bbAnalyze", "bbBreakOnGenes", "gappiness", "xmfa2maf",
-            "countInPlaceInversions"} <= set(listed)
+    assert len(listed) == len(TOOLS) == 51
+    assert listed == sorted(JAX_TOOLS)
 
 
 @pytest.fixture(scope="module")
