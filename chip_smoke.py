@@ -18,9 +18,17 @@ anchors through MauveAligner and its contigs through sortContigs, then
 ProgressiveMauve of the reference and the reordered drafts) cold and warm,
 then sortContigs and uniqueMerCount through the command line on its
 reference and first draft, and the same workflow at BASELINE's 20+ drafts
-(a 500 kbp reference and 20 drafts of 20 contigs) once.  Each run is held
-to the JAX package's outputs recorded in
-mauvealigner_tpu_torch/data/*_golden.json.
+(a 500 kbp reference and 20 drafts of 20 contigs) once.  Then the mesh
+phases: config 1 through MauveAligner, config 3 through ProgressiveMauve,
+and config 5 and config 5 wide through sort_contigs_sharded and
+ProgressiveMauve, each under Mesh((cuda:0,) * 4) (four logical shards on
+the one card: the two-phase all-to-all anchor search and every DP and HMM
+batch split four ways), and the sharded anchor search of config 1 over a world-size-1
+NCCL process group (parallel/multihost.py).  Each run is held to the JAX
+package's outputs recorded in mauvealigner_tpu_torch/data/*_golden.json
+(mesh output is bit-identical to single-device output by design, so the
+mesh runs use the same files).  The tree branch's and config 5 wide's
+genomes build in worker processes while the kernel checks run.
 
 Usage (from the repository root, one NVIDIA GPU):  python3 chip_smoke.py
 
@@ -41,11 +49,14 @@ kernel; the last line is {"ok": true, "device": {...}}.  Imports nothing of
 JAX or of the JAX package.
 """
 
+import concurrent.futures
 import contextlib
 import hashlib
 import io
 import json
+import multiprocessing
 import os
+import socket
 import sys
 import tempfile
 import time
@@ -58,7 +69,9 @@ from mauvealigner_tpu_torch.core.mln import write_match_list
 from mauvealigner_tpu_torch.models import repeatoire
 from mauvealigner_tpu_torch.models.aligner import AlignerOptions, MauveAligner
 from mauvealigner_tpu_torch.models.progressive import ProgressiveMauve, ProgressiveOptions
-from mauvealigner_tpu_torch.ops import _build, dp, gotoh_cuda
+from mauvealigner_tpu_torch.ops import _build, dp, gotoh_cuda, matchops
+from mauvealigner_tpu_torch.parallel import Mesh, find_multi_mums_sharded, multihost
+from mauvealigner_tpu_torch.parallel import sort_contigs_sharded
 from mauvealigner_tpu_torch.tools.cli import main as port_cli
 from mauvealigner_tpu_torch.utils import digest, simulate, timing
 
@@ -83,6 +96,7 @@ KERNELS = {
     "gotoh_traceback": "mauvealigner_tpu/ops/dp.py:286",
 }
 POISON = 0xEE
+MESH_SHARDS = 4  # logical shards on the one card (Mesh((cuda:0,) * 4))
 DIGEST_KEYS = ("branch", "guide_tree", "n_lcbs", "n_intervals",
                "xmfa_sha256", "backbone_sha256", "bbcols_sha256")
 
@@ -295,9 +309,8 @@ def mainpath_times(dev, shapes, config: str) -> dict:
     return res
 
 
-def config1(dev) -> dict:
-    """bench.py config 1 through MauveAligner on the card, held to the
-    JAX package's outputs recorded in the golden file."""
+def config1_inputs():
+    """bench.py config 1's two 1 Mbp genomes and its golden file."""
     with open(os.path.join(DATA, "config1_golden.json")) as fh:
         golden = json.load(fh)
     rng = np.random.default_rng(37)
@@ -310,9 +323,18 @@ def config1(dev) -> dict:
             f"stream differs on this machine ({hashes} vs {golden['genome_sha256']})"
         )
     say("config1 genomes match the golden sha256")
-    aligner = MauveAligner(AlignerOptions(use_sml_cache=False, device=str(dev)))
+    return [anc, der], golden
+
+
+def config1(dev, genomes, golden, mesh=None) -> dict:
+    """bench.py config 1 through MauveAligner on the card (over `mesh` when
+    given), held to the JAX package's outputs recorded in the golden file;
+    cold and warm on one device, once under a mesh."""
+    anc, der = genomes
+    name = "config1" if mesh is None else "config1 mesh"
+    aligner = MauveAligner(AlignerOptions(use_sml_cache=False, device=str(dev), mesh=mesh))
     runs = {}
-    for label in ("cold", "warm"):
+    for label in ("cold", "warm") if mesh is None else ("cold",):
         timing.GLOBAL.reset()
         gotoh_cuda.reset_launches()
         torch.cuda.synchronize()
@@ -330,14 +352,14 @@ def config1(dev) -> dict:
             "aligned_columns": int(sum(iv.n_cols for iv in res.interval_list.intervals)),
             "xmfa_sha256": hashlib.sha256(xmfa).hexdigest(),
         }
-        say(f"config1 {label}: {secs:.3f} s, {json.dumps(got)}, launches {launches}, "
-            f"dp_cells {timing.GLOBAL.counters.get('dp_cells', 0):.0f}")
+        say(f"{name} {label}: {secs:.3f} s, {json.dumps(got)}, launches {launches}, "
+            f"dp_cells {timing.GLOBAL.counters.get('dp_cells', 0):.0f}{sharded_note()}")
         for k, v in got.items():
             if v != golden[k]:
-                raise SystemExit(f"config1 {label}: {k} = {v}, golden {golden[k]}")
+                raise SystemExit(f"{name} {label}: {k} = {v}, golden {golden[k]}")
         for k in ("gotoh_forward_codes", "gotoh_traceback"):
             if launches[k] <= 0:
-                raise SystemExit(f"config1 {label}: kernel {k} was never launched")
+                raise SystemExit(f"{name} {label}: kernel {k} was never launched")
         runs[label] = {"seconds": secs, "launches": launches}
         if label == "warm":
             say("per-phase report (warm run):\n" + timing.GLOBAL.report().rstrip())
@@ -390,11 +412,18 @@ def config2(dev) -> dict:
     return runs
 
 
-def progressive_run(genomes, golden: dict, label: str, dev, need: tuple) -> dict:
-    """One ProgressiveMauve.align on the card with every launch count set to
-    0 just before it; held to the golden digest; returns seconds, launches,
-    the result and its digest."""
-    pm = ProgressiveMauve(ProgressiveOptions(device=str(dev)))
+def sharded_note() -> str:
+    """The sharded search's per-shard work counter of the last run, when it
+    ran."""
+    n = timing.GLOBAL.counters.get("k2_sharded_entries_per_device")
+    return "" if n is None else f", k2_sharded_entries_per_device {n:.0f}"
+
+
+def progressive_run(genomes, golden: dict, label: str, dev, need: tuple, mesh=None) -> dict:
+    """One ProgressiveMauve.align on the card (over `mesh` when given) with
+    every launch count set to 0 just before it; held to the golden digest;
+    returns seconds, launches, the result and its digest."""
+    pm = ProgressiveMauve(ProgressiveOptions(device=str(dev), mesh=mesh))
     timing.GLOBAL.reset()
     gotoh_cuda.reset_launches()
     torch.cuda.reset_peak_memory_stats()
@@ -409,7 +438,7 @@ def progressive_run(genomes, golden: dict, label: str, dev, need: tuple) -> dict
     got = digest.progressive_digest(res, branch, golden["bbcols_name"])
     say(f"{label}: {secs:.3f} s, {json.dumps(got)}, launches {launches}, "
         f"dp_cells {timing.GLOBAL.counters.get('dp_cells', 0):.0f}, "
-        f"dp_calls {timing.GLOBAL.counters.get('dp_calls', 0):.0f}")
+        f"dp_calls {timing.GLOBAL.counters.get('dp_calls', 0):.0f}{sharded_note()}")
     say(f"{label} per-phase report:\n" + timing.GLOBAL.report().rstrip())
     say(f"{label} peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
     for k in DIGEST_KEYS:
@@ -431,34 +460,40 @@ def load_golden(name: str, genomes) -> dict:
     return golden
 
 
-def config3(dev) -> dict:
+def config3_genomes():
     """BASELINE config 3 (scripts/bench_configs.py config3: 9 x 250 kbp,
-    seed 37, sub 0.02, indel 0.001), default options, cold and warm: the
-    extant branch of the gate, closure ordered by the guide tree."""
+    seed 37, sub 0.02, indel 0.001)."""
     rng = np.random.default_rng(37)
     anc = simulate.random_genome(rng, 250_000)
     genomes = [anc]
     for _ in range(8):
         d, _ = simulate.evolve(anc, rng, sub_rate=0.02, ins_rate=0.001, del_rate=0.001)
         genomes.append(d)
+    return genomes
+
+
+def config3(dev, genomes, mesh=None) -> dict:
+    """Config 3, default options: the extant branch of the gate, closure
+    ordered by the guide tree; cold and warm on one device, once under a
+    mesh."""
     golden = load_golden("config3_golden.json", genomes)
     say("config3 genomes match the golden sha256")
     need = ("gotoh_forward_codes", "gotoh_forward_profiles", "gotoh_traceback")
+    name = "config3" if mesh is None else "config3 mesh"
     runs = {}
-    for label in ("cold", "warm"):
-        r = progressive_run(genomes, golden, f"config3 {label}", dev, need)
+    for label in ("cold", "warm") if mesh is None else ("cold",):
+        r = progressive_run(genomes, golden, f"{name} {label}", dev, need, mesh)
         runs[label] = {"seconds": r["seconds"], "launches": r["launches"], "shapes": r["shapes"]}
     return runs
 
 
-def tree_branch(dev) -> dict:
+def tree_branch(dev, built) -> dict:
     """9 x 1 Mbp enterobacteria-like genomes (the generator of
-    scripts/bench_enterobacteria.py), default options: the gate must take the
-    tree-progressive branch; each (0, i) pair's sn / ppv against the
-    simulation truths must equal the golden's."""
-    t0 = time.perf_counter()
-    genomes, truths = simulate.enterobacteria_like(1_000_000, 9, 0.08)
-    say(f"tree genomes built in {time.perf_counter() - t0:.1f} s (host)")
+    scripts/bench_enterobacteria.py, built in a worker process: `built` is
+    its future), default options: the gate must take the tree-progressive
+    branch; each (0, i) pair's sn / ppv against the simulation truths must
+    equal the golden's."""
+    genomes, truths = take_built("tree", built)
     golden = load_golden("tree_golden.json", genomes)
     r = progressive_run(
         genomes, golden, "tree", dev, ("gotoh_forward_codes", "gotoh_traceback")
@@ -527,12 +562,14 @@ def config4_big(dev) -> dict:
     return repeatoire_run(genome, golden, "config4_big", dev)
 
 
-def draft_run(ref, drafts, golden: dict, label: str, dev) -> dict:
+def draft_run(ref, drafts, golden: dict, label: str, dev, mesh=None) -> dict:
     """The draft workflow on the card (utils/digest.sort_drafts: per draft
     MauveAligner's anchor search and LCBs against the reference, then
     sortContigs; then ProgressiveMauve of the reference and the reordered
     drafts), every launch count set to 0 just before it; held to every
-    field of the golden, with every kernel launched."""
+    field of the golden, with every kernel launched.  Under a mesh the front
+    half is parallel.sort_contigs_sharded (the per-draft searches split over
+    the shards) and ProgressiveMauve runs over the mesh."""
     from mauvealigner_tpu_torch.models import aligner as aligner_mod
     from mauvealigner_tpu_torch.tools import manipulate
 
@@ -541,12 +578,15 @@ def draft_run(ref, drafts, golden: dict, label: str, dev) -> dict:
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    reordered, logs = digest.sort_drafts(ref, drafts, aligner_mod, manipulate, device=str(dev))
+    if mesh is None:
+        reordered, logs = digest.sort_drafts(ref, drafts, aligner_mod, manipulate, device=str(dev))
+    else:
+        reordered, logs = map(list, zip(*sort_contigs_sharded(ref, drafts, mesh, device=dev)))
     torch.cuda.synchronize()
     front = time.perf_counter() - t0
     timing.GLOBAL.reset()
-    res = ProgressiveMauve(ProgressiveOptions(use_sml_cache=False, device=str(dev))).align(
-        [ref] + reordered)
+    res = ProgressiveMauve(ProgressiveOptions(use_sml_cache=False, device=str(dev),
+                                              mesh=mesh)).align([ref] + reordered)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launches = dict(gotoh_cuda.LAUNCHES)
@@ -573,14 +613,11 @@ def draft_run(ref, drafts, golden: dict, label: str, dev) -> dict:
             "shapes": shapes}
 
 
-def config5(dev) -> dict:
+def config5(dev, ref, drafts) -> dict:
     """BASELINE config 5 (scripts/bench_configs.py config5: a 150 kbp
     reference and 7 drafts of 6 shuffled, partly inverted contigs, seed 37),
     the draft workflow cold and warm; then sortContigs and uniqueMerCount
     through the port's command line on the reference and the first draft."""
-    t0 = time.perf_counter()
-    ref, drafts = simulate.draft_genomes(150_000, 8, 6)
-    say(f"config5 genomes built in {time.perf_counter() - t0:.1f} s (host)")
     golden = load_golden("config5_golden.json", [ref] + drafts)
     say("config5 genomes match the golden sha256")
     runs = {label: draft_run(ref, drafts, golden, f"config5 {label}", dev)
@@ -599,22 +636,124 @@ def config5(dev) -> dict:
     return runs
 
 
-def config5_wide(dev) -> dict:
+def config5_wide(dev, ref, drafts, mesh=None) -> dict:
     """The draft workflow at BASELINE's 20+ drafts: a 500 kbp reference and
     20 drafts of 20 contigs (config 5's contig density), once.  Its gate
     takes the tree-progressive branch, as in the JAX package."""
-    t0 = time.perf_counter()
-    ref, drafts = simulate.draft_genomes(500_000, 21, 20)
-    say(f"config5_wide genomes built in {time.perf_counter() - t0:.1f} s (host)")
     golden = load_golden("config5_wide_golden.json", [ref] + drafts)
     say("config5_wide genomes match the golden sha256")
-    return draft_run(ref, drafts, golden, "config5_wide", dev)
+    return draft_run(ref, drafts, golden, "config5_wide" if mesh is None else "config5_wide mesh",
+                     dev, mesh)
+
+
+def config5_mesh(dev, ref, drafts, mesh) -> dict:
+    """Config 5's draft workflow once under the mesh, against its golden."""
+    golden = load_golden("config5_golden.json", [ref] + drafts)
+    return draft_run(ref, drafts, golden, "config5 mesh", dev, mesh)
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def process_group_search(dev, genomes) -> dict:
+    """The sharded anchor search of config 1 over a world-size-1 NCCL
+    process group (init_multihost, global_mesh: the collectives are
+    torch.distributed calls), against the single-device search on the same
+    mer lists; the group is destroyed afterwards."""
+    import torch.distributed as dist
+
+    from mauvealigner_tpu_torch.core.sml import build_mer_list_device
+    from mauvealigner_tpu_torch.seeds import default_mer_size, get_seed
+
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")  # one host: loopback only
+    t0 = time.perf_counter()
+    multihost.init_multihost(f"localhost:{free_port()}", 1, 0, device=dev.type, force=True)
+    try:
+        nccl = torch.cuda.nccl.version() if dev.type == "cuda" else "none"
+        say(f"process group: backend {dist.get_backend()}, world size {dist.get_world_size()}, "
+            f"NCCL {'.'.join(map(str, nccl)) if isinstance(nccl, tuple) else nccl}, "
+            f"init {time.perf_counter() - t0:.3f} s")
+        mesh = multihost.global_mesh(dev.type)
+        seed = get_seed(default_mer_size(int(np.mean([len(g) for g in genomes]))), 0)
+        smls = [build_mer_list_device(g, seed, dev) for g in genomes]
+        single = matchops.find_multi_mums_device(genomes, smls, seed_length=seed.length)
+        timing.GLOBAL.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ml = find_multi_mums_sharded(genomes, smls, mesh, seed_length=seed.length)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        dist.destroy_process_group()
+    rows = lambda m: np.unique(np.concatenate([m.starts, m.lengths[:, None]], axis=1), axis=0)  # noqa: E731
+    same = len(ml) == len(single) and np.array_equal(rows(ml), rows(single))
+    say(f"process group search (mesh of {mesh.size} rank, group {mesh.group is not None}): "
+        f"{secs:.3f} s, {len(ml)} matches, single-device {len(single)}, "
+        f"{'equal' if same else 'DIFFER'}{sharded_note()}")
+    if not same:
+        raise SystemExit("process group search differs from the single-device search")
+    return {"seconds": secs, "matches": len(ml)}
+
+
+def build_inputs(kind: str):
+    """(seconds, genomes) of one host genome build; runs in a worker
+    process."""
+    t0 = time.perf_counter()
+    if kind == "tree":
+        out = simulate.enterobacteria_like(1_000_000, 9, 0.08)
+    elif kind == "config5_wide":
+        out = simulate.draft_genomes(500_000, 21, 20)
+    else:
+        raise ValueError(kind)
+    return time.perf_counter() - t0, out
+
+
+def take_built(kind: str, future):
+    """A worker's genomes, with its build time and how long this process
+    waited for them."""
+    t0 = time.perf_counter()
+    secs, out = future.result()
+    say(f"{kind} genomes built in {secs:.1f} s in a worker process; waited "
+        f"{time.perf_counter() - t0:.1f} s for them")
+    return out
+
+
+def mesh_launch_line(name: str, mesh_launches: dict, single_launches: dict) -> None:
+    say(f"{name}: launches per kernel under the {MESH_SHARDS}-shard mesh / single device: " + ", ".join(
+        f"{k} {mesh_launches[k]} / {single_launches[k]}" for k in KERNELS))
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
+    # the two largest host genome builds (per-base Python loops) run in
+    # worker processes while the kernels build and are checked; spawn, as
+    # this process is about to use CUDA
+    with concurrent.futures.ProcessPoolExecutor(
+        max_workers=2, mp_context=multiprocessing.get_context("spawn")
+    ) as pool:
+        built = {kind: pool.submit(build_inputs, kind) for kind in ("tree", "config5_wide")}
+        kernels, mesh_summary = run_phases(built)
+    say(f"mesh summary: {json.dumps(mesh_summary)}")
+    say(f"chip_smoke total: {time.perf_counter() - t_start:.1f} s")
+    say(card_line())
+    say(json.dumps({"kernels": kernels}))
+    say(json.dumps({"ok": True, "device": {
+        "platform": "gpu",
+        "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
+def run_phases(built):
+    """Every phase in order; returns the kernels line's list and a summary
+    of the mesh phases."""
     say(card_line())
     say(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}")
@@ -632,14 +771,41 @@ def main() -> int:
     stats = check_kernels(dev)
     stats["gotoh_forward_profiles"] = check_profile_kernel(dev)
     large = check_large_sides(dev)
-    runs = config1(dev)
+    c1_genomes, c1_golden = config1_inputs()
+    runs = config1(dev, c1_genomes, c1_golden)
     runs2 = config2(dev)
-    runs3 = config3(dev)
-    runs_tree = tree_branch(dev)
+    c3_genomes = config3_genomes()
+    runs3 = config3(dev, c3_genomes)
+    runs_tree = tree_branch(dev, built["tree"])
     runs4 = config4(dev)
     runs4_big = config4_big(dev)
-    runs5 = config5(dev)
-    runs5_wide = config5_wide(dev)
+    t0 = time.perf_counter()
+    c5_ref, c5_drafts = simulate.draft_genomes(150_000, 8, 6)
+    say(f"config5 genomes built in {time.perf_counter() - t0:.1f} s (host)")
+    runs5 = config5(dev, c5_ref, c5_drafts)
+    w_ref, w_drafts = take_built("config5_wide", built["config5_wide"])
+    runs5_wide = config5_wide(dev, w_ref, w_drafts)
+
+    # the mesh phases: four logical shards on the one card, each run held to
+    # the golden of its single-device phase
+    mesh = Mesh((dev,) * MESH_SHARDS)
+    say(f"mesh: {MESH_SHARDS} shards on {dev} ({card_line()}); four shards on one card "
+        "measure correctness and overhead, not scaling")
+    mesh_runs = {
+        "config1_mesh": config1(dev, c1_genomes, c1_golden, mesh)["cold"],
+        "config3_mesh": config3(dev, c3_genomes, mesh)["cold"],
+        "config5_mesh": config5_mesh(dev, c5_ref, c5_drafts, mesh),
+        "config5_wide_mesh": config5_wide(dev, w_ref, w_drafts, mesh),
+    }
+    # beside the single-device warm runs (config 5 wide runs once)
+    single = {"config1_mesh": runs["warm"], "config3_mesh": runs3["warm"],
+              "config5_mesh": runs5["warm"], "config5_wide_mesh": runs5_wide}
+    for name, r in mesh_runs.items():
+        mesh_launch_line(name, r["launches"], single[name]["launches"])
+        say(f"{name}: wall {r['seconds']:.3f} s under the mesh, {single[name]['seconds']:.3f} s "
+            f"on one device, warm ({card_line()})")
+    pg = process_group_search(dev, c1_genomes)
+
     mainpath2 = mainpath_times(dev, runs2["cold"]["shapes"], "2")
     mainpath = mainpath_times(dev, runs3["cold"]["shapes"], "3")
     mainpath4 = mainpath_times(dev, runs4["cold"]["shapes"], "4")
@@ -666,6 +832,7 @@ def main() -> int:
                 "config4_big": runs4_big["launches"][name],
                 "config5": runs5["cold"]["launches"][name],
                 "config5_wide": runs5_wide["launches"][name],
+                **{k: r["launches"][name] for k, r in mesh_runs.items()},
             },
             "max_abs_err": s["max_abs_err"],
             # ms, plain_ms and bound_ms at the largest timed side
@@ -704,14 +871,12 @@ def main() -> int:
                                mainpath_after_forward_ms=m["after_forward_ms"],
                                mainpath_config4_chain_floor_ms=mainpath4[name]["chain_floor_ms"],
                                mainpath_config5_chain_floor_ms=mainpath5[name]["chain_floor_ms"])
-    say(card_line())
-    say(json.dumps({"kernels": kernels}))
-    say(json.dumps({"ok": True, "device": {
-        "platform": "gpu",
-        "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count(),
-    }}))
-    return 0
+    return kernels, {
+        "shards": MESH_SHARDS,
+        "seconds": {k: r["seconds"] for k, r in mesh_runs.items()},
+        "single_device_seconds": {k: single[k]["seconds"] for k in mesh_runs},
+        "process_group": pg,
+    }
 
 
 if __name__ == "__main__":

@@ -321,6 +321,8 @@ def pairwise_homology_bits(
     if not jobs:
         return out
     t0 = time.perf_counter()
+    from mauvealigner_tpu_torch.parallel import context as par_ctx
+
     # f64 transition chain over f32 emissions: the promotion the JAX
     # package gets under global x64
     lt = torch.as_tensor(params.log_trans(), dtype=torch.float64, device=device)
@@ -349,14 +351,15 @@ def pairwise_homology_bits(
             lens = np.zeros(len(chunk), np.int64)
             for n, (_, _, gi, gj, width) in enumerate(chunk):
                 ii[n], jj[n], lens[n] = loc[gi], loc[gj], width
-            bits = hmm_ops.pair_rows_state0_gt(
-                torch.from_numpy(rows_arr).to(device),
-                torch.from_numpy(ii).to(device),
-                torch.from_numpy(jj).to(device),
-                tab, lt, li,
-                torch.from_numpy(lens).to(device),
-                float(threshold),
-            ).cpu().numpy()
+            # batch-sharded under an ambient mesh (per-element decode,
+            # bit-identical to the direct call)
+            bits = par_ctx.shard_batched_call(
+                lambda i2, j2, ln, rws, tb, t, ini, device: hmm_ops.pair_rows_state0_gt(
+                    rws, i2, j2, tb, t, ini, ln, float(threshold)
+                ),
+                [torch.from_numpy(ii), torch.from_numpy(jj), torch.from_numpy(lens)],
+                (torch.from_numpy(rows_arr), tab, lt, li), device=device,
+            )
             for n, (key, a, _, _, width) in enumerate(chunk):
                 got = bits[n, :width]
                 if a == 0:

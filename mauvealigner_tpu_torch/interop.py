@@ -13,6 +13,7 @@ import dataclasses
 from typing import List, Optional
 
 import numpy as np
+import torch
 
 from mauvealigner_tpu_torch.analysis.backbone import HmmParams
 from mauvealigner_tpu_torch.analysis.tree import TreeNode
@@ -70,17 +71,27 @@ def interval_list(ivl, gs: Optional[List[Genome]] = None) -> IntervalList:
     )
 
 
+def mesh(m, device):
+    """A JAX mesh (or None) -> a port Mesh of the same size on `device`:
+    its shards all on `device` (a one-process mesh, as the JAX package's
+    CPU test meshes are)."""
+    if m is None:
+        return None
+    from mauvealigner_tpu_torch.parallel import Mesh
+
+    return Mesh((torch.device(device),) * int(np.asarray(m.devices).size))
+
+
 def aligner_options(o, device) -> AlignerOptions:
-    """The JAX package's AlignerOptions on `device`; a mesh has no
-    counterpart and raises, closure_genomes are converted, subst is copied
-    as float32."""
-    if getattr(o, "mesh", None) is not None:
-        raise NotImplementedError("mesh-sharded anchoring is not ported yet (ROADMAP A6)")
+    """The JAX package's AlignerOptions on `device`; a mesh becomes a port
+    mesh of the same size on `device`, closure_genomes are converted, subst
+    is copied as float32."""
     kw = {}
     for f in dataclasses.fields(AlignerOptions):
         if f.name == "device" or not hasattr(o, f.name):
             continue
         kw[f.name] = getattr(o, f.name)
+    kw["mesh"] = mesh(kw.get("mesh"), device)
     if kw.get("subst") is not None:
         kw["subst"] = np.array(kw["subst"], np.float32)
     if kw.get("closure_genomes") is not None:
@@ -89,15 +100,14 @@ def aligner_options(o, device) -> AlignerOptions:
 
 
 def progressive_options(o, device) -> ProgressiveOptions:
-    """The JAX package's ProgressiveOptions on `device`; a mesh has no
-    counterpart and raises, subst is copied as float32."""
-    if getattr(o, "mesh", None) is not None:
-        raise NotImplementedError("mesh-sharded alignment is not ported yet (ROADMAP A6)")
+    """The JAX package's ProgressiveOptions on `device`; a mesh becomes a
+    port mesh of the same size on `device`, subst is copied as float32."""
     kw = {}
     for f in dataclasses.fields(ProgressiveOptions):
         if f.name == "device" or not hasattr(o, f.name):
             continue
         kw[f.name] = getattr(o, f.name)
+    kw["mesh"] = mesh(kw.get("mesh"), device)
     if kw.get("subst") is not None:
         kw["subst"] = np.array(kw["subst"], np.float32)
     return ProgressiveOptions(device=device, **kw)

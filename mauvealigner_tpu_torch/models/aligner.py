@@ -55,6 +55,11 @@ class AlignerOptions:
     subst: Optional[np.ndarray] = None  # 5x5 substitution scores; None = HOXD70
     use_sml_cache: bool = True
     debug: bool = False  # internal consistency checks (--debug, very slow)
+    # run the N-way anchor search over a mesh (parallel.Mesh: the two-phase
+    # all-to-all partitioned search, parallel.find_multi_mums_sharded), and
+    # split every batched kernel underneath over it; None = single device.
+    # Output matches the single-device run.
+    mesh: Optional[object] = None
     # optional anchor scoring callback MatchList -> [n] float weights
     # (progressive sum-of-pairs schemes, models/anchor_score.py); lcb_weight
     # must then be in the same units
@@ -164,6 +169,13 @@ class MauveAligner:
         seed = get_seed(weight, o.seed_rank)
         self._seed_weight = weight
         smls_dev = [build_mer_list_device(g, seed, self.device) for g in genomes]
+        from mauvealigner_tpu_torch.parallel import context as par_ctx
+
+        mesh = o.mesh if o.mesh is not None else par_ctx.active_mesh()
+        if mesh is not None:
+            from mauvealigner_tpu_torch.parallel import find_multi_mums_sharded
+
+            return find_multi_mums_sharded(genomes, smls_dev, mesh, seed_length=seed.length)
         return matchops.find_multi_mums_device(
             genomes, smls_dev, seed_length=seed.length
         )
@@ -576,6 +588,20 @@ class MauveAligner:
         given (pairwise only), the gapped closure aligns TRUE column
         profiles (mean-of-pairs scoring) instead of the sequences' codes —
         the progressive ladder's profile-aware node merge."""
+        from mauvealigner_tpu_torch.parallel import context as par_ctx
+
+        # ambient mesh: every batched kernel below (closure/extension DP)
+        # splits its batch over it; the anchor search routes explicitly
+        # through find_multi_mums_sharded in find_mums
+        with par_ctx.use_mesh(self.options.mesh):
+            return self._align_impl(genomes, extra_matches, seq_profiles)
+
+    def _align_impl(
+        self,
+        genomes: Sequence[Genome],
+        extra_matches: Optional[MatchList] = None,
+        seq_profiles: Optional[List[np.ndarray]] = None,
+    ) -> AlignmentResult:
         import time as _time
 
         from mauvealigner_tpu_torch.utils import timing

@@ -30,8 +30,11 @@ Determinism: all randomness flows from DEFAULT_RANDOM_SEED=37
 With use_sml_cache (the default) and genome file names, as the CLI always
 has them, the anchor search goes through the on-disk sorted-mer-list cache
 and the host seed-group path (core/sml.load_sml, matchops.find_multi_mums),
-as in the JAX package; otherwise it takes the device search.  A mesh
-(multi-device runs) raises: it has no counterpart in the port yet.
+as in the JAX package; otherwise it takes the device search.  With a mesh
+(ProgressiveOptions.mesh, a parallel.Mesh) the device search is the
+sharded two-phase search and every batched kernel underneath (node-merge
+anchoring, closure/refinement Gotoh, backbone HMM decode) splits its batch
+over the mesh's shards; the output is the single-device run's.
 """
 
 from __future__ import annotations
@@ -161,8 +164,13 @@ class ProgressiveOptions:
     # divergence-tail fix, default ON.
     tree_prune_private: bool = True
     tree_prune_max_run: int = 20
-    # multi-device runs: no counterpart in the port yet (ROADMAP A6); anything
-    # but None raises
+    # run the whole pipeline over a mesh (parallel.Mesh): the N-way anchor
+    # search routes through parallel.find_multi_mums_sharded, and every
+    # batched kernel underneath (node-merge anchoring, closure/refinement
+    # Gotoh, backbone HMM decode) splits its batch via the ambient mesh
+    # context (parallel/context.py).  Output is identical to single-device
+    # (the reference's never-shipped MPI split,
+    # projects/mpiMauveAligner.vcproj).  None = single device.
     mesh: Optional[object] = None
     # mer-space subsample (1/mod of windows) for the initial N-way search
     # when it only feeds distances + the coverage gate (tree-progressive
@@ -188,8 +196,6 @@ class ProgressiveResult:
 class ProgressiveMauve:
     def __init__(self, options: Optional[ProgressiveOptions] = None):
         self.options = options or ProgressiveOptions()
-        if self.options.mesh is not None:
-            raise NotImplementedError("mesh-sharded alignment is not ported yet (ROADMAP A6)")
         self.device = resolve_device(self.options.device)
 
     def _seed_rank(self) -> int:
@@ -229,6 +235,16 @@ class ProgressiveMauve:
             ]
             return matchops.find_multi_mums(genomes, smls, device=self.device)
         smls_dev = [build_mer_list_device(g, seed, self.device) for g in genomes]
+        from mauvealigner_tpu_torch.parallel import context as par_ctx
+
+        mesh = par_ctx.active_mesh()
+        if mesh is not None and sketch_mod <= 1:
+            # mesh path: the two-phase all-to-all partitioned N-way search
+            # (the sketched candidate search stays single-device: a 1/16 mer
+            # subsample is already cheap and shards poorly)
+            from mauvealigner_tpu_torch.parallel import find_multi_mums_sharded
+
+            return find_multi_mums_sharded(genomes, smls_dev, mesh, seed_length=seed.length)
         return matchops.find_multi_mums_device(
             genomes, smls_dev, seed_length=seed.length, sketch_mod=sketch_mod
         )
@@ -323,6 +339,14 @@ class ProgressiveMauve:
     ) -> ProgressiveResult:
         """matches: pre-computed match list (--match-input phase re-entry,
         src/progressiveMauve.cpp:367-385); skips the anchor search."""
+        from mauvealigner_tpu_torch.parallel import context as par_ctx
+
+        with par_ctx.use_mesh(self.options.mesh):
+            return self._align_impl(genomes, matches)
+
+    def _align_impl(
+        self, genomes: Sequence[Genome], matches: Optional[MatchList] = None
+    ) -> ProgressiveResult:
         from mauvealigner_tpu_torch.utils import timing
 
         timer = timing.GLOBAL
@@ -380,6 +404,7 @@ class ProgressiveMauve:
                 gap_extend=o.gap_extend,
                 subst=o.subst,
                 anchor_weight_fn=weight_fn,
+                mesh=o.mesh,
                 device=o.device,
             )
         )
@@ -606,6 +631,8 @@ class ProgressiveMauve:
                     gap_open=o.gap_open,
                     gap_extend=o.gap_extend,
                     subst=o.subst,
+                    mesh=o.mesh,  # explicit: a node merge need not run
+                    # where the ambient mesh is set
                     device=o.device,
                 )
             )

@@ -314,6 +314,32 @@ def gotoh_traceback_ref(
     return ops, counts
 
 
+def _ops_list(res, B: int):
+    """(ops [B, M+N] end first, counts [B], scores [B]) on the host -> (op
+    arrays in start-to-end order, scores)."""
+    ops_h, cnt, scores = res
+    return [ops_h[b, : cnt[b]][::-1].copy() for b in range(B)], scores
+
+
+def _code_pairs_launch(ca, cb, la, lb, subst, gap_open, gap_extend, device):
+    """Forward and traceback of one batch of code pairs (host arrays) on
+    `device`: (ops, counts, scores) tensors there."""
+    from mauvealigner_tpu_torch.ops import gotoh_cuda  # imports this module
+
+    gotoh_cuda.LAUNCH_SHAPES.append(dict(
+        kernel="gotoh_forward_codes", M=ca.shape[1], N=cb.shape[1], B=ca.shape[0],
+        lens_a=la.copy(), lens_b=lb.copy(), normalize=False,
+    ))
+    ca = torch.from_numpy(np.ascontiguousarray(ca, np.uint8)).to(device)
+    cb = torch.from_numpy(np.ascontiguousarray(cb, np.uint8)).to(device)
+    la = torch.from_numpy(la).to(device)
+    lb = torch.from_numpy(lb).to(device)
+    sub = torch.from_numpy(np.asarray(subst, np.float32).copy()).to(device)
+    scores, dec = gotoh_cuda.gotoh_forward_codes(ca, cb, la, lb, sub, gap_open, gap_extend)
+    ops, counts = gotoh_cuda.gotoh_traceback(dec, la, lb)
+    return ops, counts, scores  # the decision bytes die once the traceback is queued
+
+
 def align_code_pairs_batch_async(
     codes_a: np.ndarray,  # uint8 [B, M], pad with 255
     codes_b: np.ndarray,
@@ -324,10 +350,11 @@ def align_code_pairs_batch_async(
     gap_extend: float = DEFAULT_GAP_EXTEND,
     device="cuda",
 ):
-    """Launch a batched sequence-pair alignment on `device`; returns a
+    """Launch a batched sequence-pair alignment on `device` (on the shards
+    of the ambient mesh, if any: the batch is split over them); returns a
     zero-arg fetch() -> (list of op arrays in start-to-end order, scores
     [B]).  Launches are asynchronous on a CUDA device; fetch() blocks."""
-    from mauvealigner_tpu_torch.ops import gotoh_cuda  # imports this module
+    from mauvealigner_tpu_torch.parallel import context as par_ctx
     from mauvealigner_tpu_torch.utils import timing
 
     B, M = codes_a.shape
@@ -338,26 +365,12 @@ def align_code_pairs_batch_async(
         raise ValueError(f"lengths must lie in [0, {M}] x [0, {N}]")
     timing.GLOBAL.add("dp_cells", float(B) * M * N)
     timing.GLOBAL.add("dp_calls", 1.0)
-    gotoh_cuda.LAUNCH_SHAPES.append(dict(
-        kernel="gotoh_forward_codes", M=M, N=N, B=B, lens_a=la_h.copy(), lens_b=lb_h.copy(),
-        normalize=False,
-    ))
-    ca = torch.from_numpy(np.ascontiguousarray(codes_a, np.uint8)).to(device)
-    cb = torch.from_numpy(np.ascontiguousarray(codes_b, np.uint8)).to(device)
-    la = torch.from_numpy(la_h).to(device)
-    lb = torch.from_numpy(lb_h).to(device)
-    sub = torch.from_numpy(np.asarray(subst, np.float32).copy()).to(device)
-    scores, dec = gotoh_cuda.gotoh_forward_codes(ca, cb, la, lb, sub, gap_open, gap_extend)
-    ops, counts = gotoh_cuda.gotoh_traceback(dec, la, lb)
-    del dec  # the decision bytes are dead once the traceback is queued
-
-    def fetch():
-        ops_h = ops.cpu().numpy()
-        cnt = counts.cpu().numpy()
-        out = [ops_h[b, : cnt[b]][::-1].copy() for b in range(B)]
-        return out, scores.cpu().numpy()
-
-    return fetch
+    fetch_buf = par_ctx.shard_batched_call_async(
+        lambda ca, cb, la, lb, device: _code_pairs_launch(
+            ca, cb, la, lb, subst, gap_open, gap_extend, device),
+        [codes_a, codes_b, la_h, lb_h], device=device,
+    )
+    return lambda: _ops_list(fetch_buf(), B)
 
 
 def align_code_pairs_batch(
@@ -376,6 +389,32 @@ def align_code_pairs_batch(
     )()
 
 
+def _profiles_launch(pa, pb, la, lb, subst, gap_open, gap_extend, normalize, device):
+    """Forward and traceback of one batch of profile pairs (host arrays) on
+    `device`: (ops, counts, scores) tensors there."""
+    from mauvealigner_tpu_torch.ops import gotoh_cuda  # imports this module
+
+    gotoh_cuda.LAUNCH_SHAPES.append(dict(
+        kernel="gotoh_forward_profiles", M=pa.shape[1], N=pb.shape[1], B=pa.shape[0],
+        lens_a=la.copy(), lens_b=lb.copy(), normalize=bool(normalize),
+    ))
+
+    def ship(p):
+        if p.dtype != np.uint8:
+            p = np.asarray(p, np.float32)
+        return torch.from_numpy(np.ascontiguousarray(p)).to(device).to(torch.float32)
+
+    pa, pb = ship(pa), ship(pb)
+    la = torch.from_numpy(la).to(device)
+    lb = torch.from_numpy(lb).to(device)
+    sub = torch.from_numpy(np.asarray(subst, np.float32).copy()).to(device)
+    scores, dec = gotoh_cuda.gotoh_forward_profiles(
+        pa, pb, la, lb, sub, gap_open, gap_extend, normalize
+    )
+    ops, counts = gotoh_cuda.gotoh_traceback(dec, la, lb)
+    return ops, counts, scores
+
+
 def align_profiles_batch_async(
     profiles_a: np.ndarray,  # [B, M, 5] uint8 counts (or float32), zero rows past lens_a
     profiles_b: np.ndarray,  # [B, N, 5]
@@ -387,13 +426,14 @@ def align_profiles_batch_async(
     normalize: bool = False,
     device="cuda",
 ):
-    """Launch a batched profile-pair alignment on `device`; returns a
+    """Launch a batched profile-pair alignment on `device` (on the shards of
+    the ambient mesh, if any: the batch is split over them); returns a
     zero-arg fetch() -> (list of op arrays in start-to-end order, scores
     [B]).  uint8 count profiles are copied as bytes and widened to f32 on
     the device.  normalize=True scores the mean pairwise substitution (each
     profile row divided by its count total on the device) — the
     profile-aware mode whose score scale matches plain code alignment."""
-    from mauvealigner_tpu_torch.ops import gotoh_cuda  # imports this module
+    from mauvealigner_tpu_torch.parallel import context as par_ctx
     from mauvealigner_tpu_torch.utils import timing
 
     B, M, _ = profiles_a.shape
@@ -404,33 +444,12 @@ def align_profiles_batch_async(
         raise ValueError(f"lengths must lie in [0, {M}] x [0, {N}]")
     timing.GLOBAL.add("dp_cells", float(B) * M * N)
     timing.GLOBAL.add("dp_calls", 1.0)
-    gotoh_cuda.LAUNCH_SHAPES.append(dict(
-        kernel="gotoh_forward_profiles", M=M, N=N, B=B, lens_a=la_h.copy(), lens_b=lb_h.copy(),
-        normalize=bool(normalize),
-    ))
-
-    def ship(p):
-        if p.dtype != np.uint8:
-            p = np.asarray(p, np.float32)
-        return torch.from_numpy(np.ascontiguousarray(p)).to(device).to(torch.float32)
-
-    pa, pb = ship(profiles_a), ship(profiles_b)
-    la = torch.from_numpy(la_h).to(device)
-    lb = torch.from_numpy(lb_h).to(device)
-    sub = torch.from_numpy(np.asarray(subst, np.float32).copy()).to(device)
-    scores, dec = gotoh_cuda.gotoh_forward_profiles(
-        pa, pb, la, lb, sub, gap_open, gap_extend, normalize
+    fetch_buf = par_ctx.shard_batched_call_async(
+        lambda pa, pb, la, lb, device: _profiles_launch(
+            pa, pb, la, lb, subst, gap_open, gap_extend, normalize, device),
+        [profiles_a, profiles_b, la_h, lb_h], device=device,
     )
-    ops, counts = gotoh_cuda.gotoh_traceback(dec, la, lb)
-    del dec
-
-    def fetch():
-        ops_h = ops.cpu().numpy()
-        cnt = counts.cpu().numpy()
-        out = [ops_h[b, : cnt[b]][::-1].copy() for b in range(B)]
-        return out, scores.cpu().numpy()
-
-    return fetch
+    return lambda: _ops_list(fetch_buf(), B)
 
 
 def align_profiles_batch(

@@ -11,8 +11,10 @@ ops/_build.py on first use.
 Dispatch: a CUDA tensor launches the kernel (or raises); a CPU tensor runs
 the plain-torch version in ops/dp.py.  LAUNCHES counts the kernel launches
 of each wrapper (plain-version calls are not counted).  LAUNCH_SHAPES lists
-the shape of every forward call of dp.align_*_batch_async, made from the
-lengths they hold on the host: a replayable record of a run's launches.
+the shape of every forward launch of dp.align_*_batch_async (one per mesh
+shard under a mesh), made from the lengths they hold on the host: a
+replayable record of a run's launches.  Each launch runs with its inputs'
+device made current, so a mesh shard on another card launches there.
 
 The forward kernels write only the live rectangle of each problem
 (dp.live_cell_mask); the other bytes of `dec` are left as torch.empty gives
@@ -77,6 +79,10 @@ def _kernel_gaps(gap_open: float, gap_extend: float) -> Tuple[float, float]:
     return go_ge, ge
 
 
+def _stream(dev) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+
+
 def _slab(lib, B: int, N: int, profiles: bool, dev):
     """(the device slab a forward launch needs, its pointer), or (None, a
     null pointer) when the problems fit shared memory."""
@@ -104,6 +110,13 @@ def gotoh_forward_codes(
         )
     if codes_a.device.type != "cuda":
         raise ValueError(f"no Gotoh kernel for device {codes_a.device}")
+    return _forward_codes_launch(codes_a, codes_b, lens_a, lens_b, subst, gap_open, gap_extend)
+
+
+def _forward_codes_launch(codes_a, codes_b, lens_a, lens_b, subst, gap_open, gap_extend):
+    """The CUDA half of gotoh_forward_codes: checks, allocation and the
+    launch, on the inputs' device made current (the runtime launches on the
+    current device, and a mesh shard may live on another card)."""
     B, M = codes_a.shape
     N = codes_b.shape[1]
     dev = codes_a.device
@@ -120,12 +133,12 @@ def gotoh_forward_codes(
 
     lib = _build.library()
     go_ge, ge = _kernel_gaps(gap_open, gap_extend)
-    slab, slab_ptr = _slab(lib, B, N, False, dev)  # held until the launch is queued
-    err = lib.gotoh_forward_codes_launch(
-        _ptr(codes_a), _ptr(codes_b), _ptr(lens_a), _ptr(lens_b), _ptr(subst),
-        go_ge, ge, B, M, N, 0, 0, slab_ptr, _ptr(scores), _ptr(dec),
-        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
-    )
+    with torch.cuda.device(dev):
+        slab, slab_ptr = _slab(lib, B, N, False, dev)  # held until the launch is queued
+        err = lib.gotoh_forward_codes_launch(
+            _ptr(codes_a), _ptr(codes_b), _ptr(lens_a), _ptr(lens_b), _ptr(subst),
+            go_ge, ge, B, M, N, 0, 0, slab_ptr, _ptr(scores), _ptr(dec), _stream(dev),
+        )
     _raise_on_error(lib, err, "gotoh_forward_codes")
     LAUNCHES["gotoh_forward_codes"] += 1
     return scores, dec
@@ -150,6 +163,15 @@ def gotoh_forward_profiles(
         )
     if prof_a.device.type != "cuda":
         raise ValueError(f"no Gotoh kernel for device {prof_a.device}")
+    return _forward_profiles_launch(
+        prof_a, prof_b, lens_a, lens_b, subst, gap_open, gap_extend, normalize
+    )
+
+
+def _forward_profiles_launch(prof_a, prof_b, lens_a, lens_b, subst, gap_open, gap_extend,
+                             normalize):
+    """The CUDA half of gotoh_forward_profiles, on the inputs' device made
+    current."""
     B, M, _ = prof_a.shape
     N = prof_b.shape[1]
     dev = prof_a.device
@@ -166,12 +188,13 @@ def gotoh_forward_profiles(
 
     lib = _build.library()
     go_ge, ge = _kernel_gaps(gap_open, gap_extend)
-    slab, slab_ptr = _slab(lib, B, N, True, dev)  # held until the launch is queued
-    err = lib.gotoh_forward_profiles_launch(
-        _ptr(prof_a), _ptr(prof_b), _ptr(lens_a), _ptr(lens_b), _ptr(subst),
-        go_ge, ge, B, M, N, int(bool(normalize)), 0, 0, slab_ptr, _ptr(scores), _ptr(dec),
-        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
-    )
+    with torch.cuda.device(dev):
+        slab, slab_ptr = _slab(lib, B, N, True, dev)  # held until the launch is queued
+        err = lib.gotoh_forward_profiles_launch(
+            _ptr(prof_a), _ptr(prof_b), _ptr(lens_a), _ptr(lens_b), _ptr(subst),
+            go_ge, ge, B, M, N, int(bool(normalize)), 0, 0, slab_ptr, _ptr(scores),
+            _ptr(dec), _stream(dev),
+        )
     _raise_on_error(lib, err, "gotoh_forward_profiles")
     LAUNCHES["gotoh_forward_profiles"] += 1
     return scores, dec
@@ -188,6 +211,12 @@ def gotoh_traceback(
         return dp.gotoh_traceback_ref(dec, lens_a, lens_b)
     if dec.device.type != "cuda":
         raise ValueError(f"no traceback kernel for device {dec.device}")
+    return _traceback_launch(dec, lens_a, lens_b)
+
+
+def _traceback_launch(dec, lens_a, lens_b):
+    """The CUDA half of gotoh_traceback, on the inputs' device made
+    current."""
     B, n_diags, W = dec.shape
     M = W - 1
     N = n_diags - 1 - M
@@ -204,10 +233,11 @@ def gotoh_traceback(
     from mauvealigner_tpu_torch.ops import _build
 
     lib = _build.library()
-    err = lib.gotoh_traceback_launch(
-        _ptr(dec), _ptr(lens_a), _ptr(lens_b), B, M, N, 0, _ptr(ops), _ptr(counts),
-        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
-    )
+    with torch.cuda.device(dev):
+        err = lib.gotoh_traceback_launch(
+            _ptr(dec), _ptr(lens_a), _ptr(lens_b), B, M, N, 0, _ptr(ops), _ptr(counts),
+            _stream(dev),
+        )
     _raise_on_error(lib, err, "gotoh_traceback")
     LAUNCHES["gotoh_traceback"] += 1
     return ops, counts

@@ -56,17 +56,24 @@ _MIX_C2 = -4417276706812531889  # 0xC2B2AE3D27D4EB4F
 _MIX_C3 = -8796714831421723037  # 0x85EBCA77C2B2AE63
 
 
-def _global_sort(keys: torch.Tensor, seq_ids: torch.Tensor, positions: torch.Tensor):
+def _global_sort(keys: torch.Tensor, seq_ids: torch.Tensor, positions: torch.Tensor,
+                 full_sort: bool = False):
     """Sort concatenated mer-list entries by (mer, genome, position), the
     strand bit (key LSB) carried along.  Replaces both _global_sort and
     _global_sort_packed of the JAX package (the packed variant only cut
     sort operands on the TPU).
 
-    Precondition: entries with equal mer arrive in (genome, position)
-    order, which both producers here guarantee (the per-genome lists are
-    concatenated in genome order and each is in position order; the gap
-    search lays regions out gap-major, genome-minor).  One stable sort by
-    mer then gives the full lexicographic order."""
+    Precondition unless full_sort: entries with equal mer arrive in
+    (genome, position) order, which the single-device producers guarantee
+    (the per-genome lists are concatenated in genome order and each is in
+    position order; the gap search lays regions out gap-major,
+    genome-minor).  One stable sort by mer then gives the full lexicographic
+    order.  full_sort sorts by (genome, position) first, for entries in any
+    order (a mesh partition received from several shards)."""
+    if full_sort:
+        o = torch.sort((seq_ids.to(torch.int64) << 32) | positions.to(torch.int64),
+                       stable=True).indices
+        keys, seq_ids, positions = keys[o], seq_ids[o], positions[o]
     mer_s, order = torch.sort(keys >> 1, stable=True)
     strand_s = (keys[order] & 1).to(torch.int32)
     return mer_s, seq_ids[order], positions[order], strand_s
@@ -99,7 +106,7 @@ def _carry_last2(va, vb, flags, reverse=False):
     return out if vb is not None else out[0]
 
 
-def _sig_phase(keys, seq_ids, positions, seq_mask, n_seqs, min_multi):
+def _sig_phase(keys, seq_ids, positions, seq_mask, n_seqs, min_multi, full_sort=False):
     """Grouping half of the candidate search: sort by (mer, genome, pos),
     detect seed groups, per-genome uniqueness, reference selection, and the
     order-independent 64-bit group signature.
@@ -109,7 +116,7 @@ def _sig_phase(keys, seq_ids, positions, seq_mask, n_seqs, min_multi):
     genome ids, window positions, signed 1-based positions, reference
     positions.  Segments are contiguous in sorted order, so every
     per-segment reduction is a cumsum plus monotone cummax/cummin fills."""
-    mer_s, seq_s, pos_s, strand_s = _global_sort(keys, seq_ids, positions)
+    mer_s, seq_s, pos_s, strand_s = _global_sort(keys, seq_ids, positions, full_sort)
     dev = mer_s.device
     valid = mer_s != (INVALID_KEY >> 1)
 
@@ -219,6 +226,69 @@ def device_mum_candidates(
     head[0, 0] = n_runs.to(torch.int32)
     packed = torch.cat([comp_tab[:cap], span_tab[:cap]], dim=1)
     return torch.cat([head, packed], dim=0)
+
+
+def mum_runs_from_sig_entries(
+    sig: torch.Tensor,   # int64 [N] group signature (incl. multiplicity)
+    p0: torch.Tensor,    # int32 [N] group reference window position
+    seq: torch.Tensor,   # int32 [N] (-1 = padding)
+    spos: torch.Tensor,  # int32 [N] signed 1-based window position
+    n_seqs: int,
+    cap: int,
+) -> torch.Tensor:
+    """Run-merging half of the candidate search for entries in arbitrary
+    order (the mesh path: entries arrive by an all-to-all keyed by
+    hash(signature), so all windows of one diagonal run land on one shard,
+    but interleaved).  Entries of one seed group share (sig, p0).  Returns
+    the packed [cap+1, n_seqs+2] table of device_mum_candidates.
+
+    The JAX package's 4-key sort (invalid flag, signature as signed int32
+    halves, p0) is three stable sorts from the last key to the first; the
+    halves' order is the int64 signature's with bit 31 flipped."""
+    N = sig.shape[0]
+    dev = sig.device
+    valid = seq >= 0
+    o = torch.sort(p0, stable=True).indices
+    o = o[torch.sort(sig[o] ^ (1 << 31), stable=True).indices]
+    o = o[torch.sort((~valid[o]).to(torch.int32), stable=True).indices]
+    sig_s, p0_s, seq_s, spos_s, valid_s = sig[o], p0[o], seq[o], spos[o], valid[o]
+    iota = torch.arange(N, dtype=torch.int64, device=dev)
+    prev_same = torch.zeros(N, dtype=torch.bool, device=dev)
+    prev_same[1:] = (sig_s[1:] == sig_s[:-1]) & (p0_s[1:] == p0_s[:-1])
+    new_seg = valid_s & ~prev_same
+    seg_id = torch.cumsum(new_seg, 0) - 1
+
+    # per-segment signature / p0 from the segment's first entry (JAX:
+    # .at[seg_id].min over valid entries' indices)
+    seg_first = torch.full((N,), N - 1, dtype=torch.int64, device=dev).scatter_reduce(
+        0, seg_id.clamp(min=0), torch.where(valid_s, iota, N - 1), "amin"
+    )
+    n_segs = new_seg.sum()
+    seg_valid = iota < n_segs
+    s_sig, s_p0 = sig_s[seg_first], p0_s[seg_first]
+    cont = torch.zeros(N, dtype=torch.bool, device=dev)
+    cont[1:] = seg_valid[1:] & (s_sig[1:] == s_sig[:-1]) & (s_p0[1:] == s_p0[:-1] + 1)
+    run_start = seg_valid & ~cont
+    run_id = torch.cumsum(run_start, 0) - 1
+    n_runs = run_start.sum()
+    run_end = torch.zeros(N, dtype=torch.bool, device=dev)
+    run_end[:-1] = ~cont[1:]
+    run_end[-1:] = True
+    run_end &= seg_valid
+    row_of_seg = torch.where(seg_valid & (run_id < cap), run_id, cap)
+    # out-of-range and unused rows aim at the spare row `cap`, sliced off
+    span_tab = torch.full((cap + 1, 2), -1, dtype=torch.int32, device=dev)
+    zero = torch.zeros_like(row_of_seg)
+    span_tab.index_put_((torch.where(run_start, row_of_seg, cap), zero), s_p0)
+    span_tab.index_put_((torch.where(run_end, row_of_seg, cap), zero + 1), s_p0)
+    # components of run-first segments scatter into the comp table
+    comp_row_of_seg = torch.where(run_start, row_of_seg, cap)
+    comp_row = torch.where(valid_s, comp_row_of_seg[seg_id.clamp(0, N - 1)], cap)
+    comp_tab = torch.zeros((cap + 1, n_seqs), dtype=torch.int32, device=dev)
+    comp_tab.index_put_((comp_row, seq_s.clamp(0, n_seqs - 1).to(torch.int64)), spos_s)
+    head = torch.zeros((1, n_seqs + 2), dtype=torch.int32, device=dev)
+    head[0, 0] = n_runs.to(torch.int32)
+    return torch.cat([head, torch.cat([comp_tab[:cap], span_tab[:cap]], dim=1)], dim=0)
 
 
 def _concat_device_smls(smls_dev):

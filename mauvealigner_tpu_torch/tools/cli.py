@@ -63,13 +63,6 @@ def _read_alignment(path: str, seq_files: List[str]) -> IntervalList:
     return ivl
 
 
-def _no_mesh(mesh_devices: int) -> None:
-    if mesh_devices > 1:
-        raise NotImplementedError(
-            "--mesh-devices: multi-device runs are not ported yet (ROADMAP A6)"
-        )
-
-
 # ---------------------------------------------------------------- flagship
 
 def _matches_from_intervals(ivl: IntervalList):
@@ -131,8 +124,8 @@ def mauve_aligner_cli(argv: List[str]) -> int:
     p.add_argument("--weight", type=float, default=None, help="minimum LCB weight")
     p.add_argument("--no-recursion", action="store_true")
     p.add_argument("--mesh-devices", type=int, default=0,
-                   help="multi-device runs are not ported yet (ROADMAP A6); "
-                   "above 1 raises")
+                   help="run the anchor search sharded over this many "
+                   "devices (0 = single device; output is identical)")
     p.add_argument("--no-lcb-extension", action="store_true",
                    help="skip the LCB extension phase")
     p.add_argument("--max-extension-iterations", type=int, default=4,
@@ -212,8 +205,13 @@ def mauve_aligner_cli(argv: List[str]) -> int:
     genomes = load_genomes(a.seqs)
     if (a.island_size != 0) != (a.island_output != ""):
         p.error("Both --island-output and --island-size must be specified")
-    _no_mesh(a.mesh_devices)
+    mesh = None
+    if a.mesh_devices > 1:
+        from mauvealigner_tpu_torch.parallel import make_mesh
+
+        mesh = make_mesh(a.mesh_devices, device=a.device)
     opts = AlignerOptions(
+        mesh=mesh,
         seed_size=a.seed_size,
         seed_rank=rank,
         lcb_weight=a.weight,
@@ -511,8 +509,10 @@ def progressive_mauve_cli(argv: List[str]) -> int:
                    "are unique MUMs, src/progressiveMauve.cpp:295)")
     p.add_argument("--no-recursion", action="store_true")
     p.add_argument("--mesh-devices", type=int, default=0,
-                   help="multi-device runs are not ported yet (ROADMAP A6); "
-                   "above 1 raises")
+                   help="shard the whole pipeline (N-way anchor search, "
+                   "node-merge anchoring, closure/refinement DP, backbone "
+                   "HMM decode) over this many devices (0 = single device; "
+                   "output is identical)")
     p.add_argument("--tree-progressive", choices=["auto", "0", "1"],
                    default="auto",
                    help="per-node consensus-profile anchoring up the guide "
@@ -560,7 +560,6 @@ def progressive_mauve_cli(argv: List[str]) -> int:
         applied = apply_backbone(ivl, segs)
         applied.write_xmfa(a.output)
         return 0
-    _no_mesh(a.mesh_devices)
     genomes = load_genomes(a.seqs)
     opts = ProgressiveOptions(
         tree_progressive={"auto": None, "0": False, "1": True}[a.tree_progressive],
@@ -596,6 +595,10 @@ def progressive_mauve_cli(argv: List[str]) -> int:
         use_sml_cache=not a.disable_cache,
         device=a.device,
     )
+    if a.mesh_devices > 1:
+        from mauvealigner_tpu_torch.parallel import make_mesh
+
+        opts.mesh = make_mesh(a.mesh_devices, device=a.device)
     if a.gap_open is not None:
         opts.gap_open = a.gap_open
     if a.gap_extend is not None:

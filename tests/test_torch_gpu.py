@@ -295,6 +295,65 @@ def test_progressive_gpu_matches_cpu(rng, cuda_device):
     assert min(out[str(cuda_device)][2].values()) > 0
 
 
+def test_progressive_mesh_gpu_matches_cpu(rng, cuda_device):
+    """ProgressiveMauve (device search) under a mesh of three shards on the
+    card: the CPU single-device XMFA and backbone rows, every kernel
+    launched."""
+    from mauvealigner_tpu_torch.models.progressive import ProgressiveMauve, ProgressiveOptions
+    from mauvealigner_tpu_torch.parallel import Mesh
+
+    anc = simulate.random_genome(rng, 6000)
+    genomes = [anc] + [
+        simulate.evolve(anc, rng, sub_rate=0.03, ins_rate=0.002, del_rate=0.002)[0]
+        for _ in range(3)
+    ]
+    out = {}
+    for dev, mesh in (("cpu", None), (str(cuda_device), Mesh((cuda_device,) * 3))):
+        gotoh_cuda.reset_launches()
+        res = ProgressiveMauve(ProgressiveOptions(
+            seed_weight=9, use_sml_cache=False, device=dev, mesh=mesh)).align(genomes)
+        buf = io.StringIO()
+        res.interval_list.write_xmfa(buf)
+        out[dev] = (buf.getvalue(), res.backbone_rows, dict(gotoh_cuda.LAUNCHES))
+    gpu = out[str(cuda_device)]
+    assert out["cpu"][0] == gpu[0]
+    assert np.array_equal(out["cpu"][1], gpu[1])
+    assert min(gpu[2].values()) > 0
+
+
+def test_mesh_across_cards_matches_cpu(rng, cuda_device):
+    """One process, one shard per visible card (needs two cards or more):
+    the sharded anchor search's all-to-all copies cross cards and every DP
+    launch runs on its shard's card.  ProgressiveMauve equals the CPU
+    single-device run, and every card allocated and launched."""
+    from mauvealigner_tpu_torch.models.progressive import ProgressiveMauve, ProgressiveOptions
+    from mauvealigner_tpu_torch.parallel import make_mesh
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two NVIDIA GPUs or more: one shard per card")
+    anc = simulate.random_genome(rng, 8000)
+    genomes = [anc] + [
+        simulate.evolve(anc, rng, sub_rate=0.03, ins_rate=0.002, del_rate=0.002)[0]
+        for _ in range(3)
+    ]
+    mesh = make_mesh(n, device="cuda")
+    out = {}
+    for dev, m in (("cpu", None), ("cuda", mesh)):
+        for d in range(n):
+            torch.cuda.reset_peak_memory_stats(d)
+        gotoh_cuda.reset_launches()
+        res = ProgressiveMauve(ProgressiveOptions(
+            seed_weight=9, use_sml_cache=False, device=dev, mesh=m)).align(genomes)
+        buf = io.StringIO()
+        res.interval_list.write_xmfa(buf)
+        out[dev] = (buf.getvalue(), res.backbone_rows, dict(gotoh_cuda.LAUNCHES))
+    assert out["cpu"][0] == out["cuda"][0]
+    assert np.array_equal(out["cpu"][1], out["cuda"][1])
+    assert min(out["cuda"][2].values()) > 0
+    assert all(torch.cuda.max_memory_allocated(d) > 0 for d in range(n))
+
+
 def test_repeatoire_gpu_matches_cpu(rng, cuda_device):
     """A few-kbp genome with a planted 5-copy family and an inverted copy
     through Repeatoire (sorted mer list, seed groups, extension waves through

@@ -170,10 +170,18 @@ def test_three_way_mauve_aligner_identical(rng):
 
 
 def test_mesh_and_missing_gpu_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        TorchProgressive(TorchOptions(mesh=object(), device="cpu"))
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        interop.progressive_options(ProgressiveOptions(mesh=object()), "cpu")
+    """A mesh of more GPUs than are visible raises, as does cuda without a
+    GPU; a JAX mesh converts to a port mesh of its size (tests of mesh runs:
+    tests/test_torch_mesh_progressive.py)."""
+    from mauvealigner_tpu.parallel import make_mesh as jax_make_mesh
+    from mauvealigner_tpu_torch.parallel import make_mesh
+
+    n = max(2, torch.cuda.device_count() + 1)
+    with pytest.raises(ValueError, match=f"requested {n} devices"):
+        make_mesh(n, device="cuda")
+    converted = interop.progressive_options(ProgressiveOptions(mesh=jax_make_mesh(8)), "cpu")
+    assert converted.mesh.size == 8 and converted.mesh.devices[0].type == "cpu"
+    TorchProgressive(converted)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             TorchProgressive(interop.progressive_options(ProgressiveOptions(), "cuda"))

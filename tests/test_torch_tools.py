@@ -222,8 +222,43 @@ def test_progressive_apply_backbone_identical(three):
 
 @pytest.mark.parametrize("tool", ALIGNERS)
 def test_mesh_devices_raise(three, tool):
-    with contextlib.chdir(three), pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        torch_cli([tool, *SEQS, "--mesh-devices=2", "--output=x.xmfa", "--device=cpu"])
+    """--mesh-devices above the visible GPU count raises on cuda, as the JAX
+    package's make_mesh does above its device count."""
+    n = max(2, torch.cuda.device_count() + 1)
+    with contextlib.chdir(three), pytest.raises(ValueError, match=f"requested {n} devices"):
+        torch_cli([tool, *SEQS, f"--mesh-devices={n}", "--output=x.xmfa", "--device=cuda"])
+
+
+MESH_RUNS = {
+    "mauveAligner": (["--seed-size=11", "--output-alignment={o}.xmfa", "--output={o}.mln"],
+                     ["{o}.xmfa", "{o}.mln"]),
+    "progressiveMauve": (["--seed-weight=11", "--disable-cache", "--output={o}.xmfa"],
+                         ["{o}.xmfa", "{o}.xmfa.backbone", "{o}.xmfa.bbcols",
+                          "{o}.xmfa.guide_tree"]),
+}
+
+
+@pytest.mark.parametrize("tool", ALIGNERS)
+def test_mesh_devices_identical(three, tool):
+    """--mesh-devices 2 --device cpu (two logical CPU shards: the sharded
+    anchor search, DP and HMM batches split in two) writes the bytes of the
+    run without the flag and of the JAX CLI with --mesh-devices 2."""
+    flags, outputs = MESH_RUNS[tool]
+    with contextlib.chdir(three):
+        runs = {
+            "j": (jax_cli, ["--mesh-devices=2"]),
+            "tm": (torch_cli, ["--mesh-devices=2", "--device=cpu"]),
+            "ts": (torch_cli, ["--device=cpu"]),
+        }
+        for tag, (cli, extra) in runs.items():
+            assert cli([tool, *SEQS, *[f.replace("{o}", tag) for f in flags], *extra]) == 0
+        for name in outputs:
+            ref = open(name.replace("{o}", "j"), "rb").read()
+            for tag in ("tm", "ts"):
+                got = open(name.replace("{o}", tag), "rb").read()
+                # progressiveMauve's XMFA header names its own .bbcols file
+                got = got.replace(f"{tag}.xmfa.bbcols".encode(), b"j.xmfa.bbcols")
+                assert len(ref) > 0 and ref == got, (name, tag)
 
 
 def test_tool_list(capsys):
