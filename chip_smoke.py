@@ -24,11 +24,17 @@ and config 5 and config 5 wide through sort_contigs_sharded and
 ProgressiveMauve, each under Mesh((cuda:0,) * 4) (four logical shards on
 the one card: the two-phase all-to-all anchor search and every DP and HMM
 batch split four ways), and the sharded anchor search of config 1 over a world-size-1
-NCCL process group (parallel/multihost.py).  Each run is held to the JAX
-package's outputs recorded in mauvealigner_tpu_torch/data/*_golden.json
+NCCL process group (parallel/multihost.py).  Then the runs at the size
+users run: BASELINE.md's headline, 9 x 4.6 Mbp enterobacteria-like genomes
+(the genomes of scripts/bench_enterobacteria.py) through ProgressiveMauve's
+tree-progressive branch, and Repeatoire on a whole 4.6 Mbp chromosome
+(config 4's planted families, every spacer 20x); and the 9 x 1 Mbp tree
+branch once more with the ladder's thread pool (MAUVE_TP_WORKERS=4),
+whose launch counts must equal the serial run's.  Each run is held to the
+JAX package's outputs recorded in mauvealigner_tpu_torch/data/*_golden.json
 (mesh output is bit-identical to single-device output by design, so the
-mesh runs use the same files).  The tree branch's and config 5 wide's
-genomes build in worker processes while the kernel checks run.
+mesh runs use the same files).  The tree branch's, config 5 wide's and the
+headline's genomes build in worker processes while the earlier phases run.
 
 Usage (from the repository root, one NVIDIA GPU):  python3 chip_smoke.py
 
@@ -38,7 +44,7 @@ kernels write; the traceback kernel is held to the plain traceback on the
 plain decisions and on each forward kernel's decisions with every byte
 outside the live rectangles poisoned (POISON).  After the driven paths,
 config 2's, config 3's and config 4's cold-run launch lists
-(gotoh_cuda.LAUNCH_SHAPES), and config 5's, are replayed with random
+(gotoh_cuda.LAUNCH_SHAPES), config 5's and the headline's, are replayed with random
 contents at the recorded lengths (scripts/gotoh_replay.py): each kernel's
 summed ms, bound and roofline share print on the "main path" lines, and the
 traceback's chain floor beside its bound.
@@ -56,10 +62,12 @@ import io
 import json
 import multiprocessing
 import os
+import resource
 import socket
 import sys
 import tempfile
 import time
+from unittest import mock
 
 import numpy as np
 import torch
@@ -99,10 +107,42 @@ POISON = 0xEE
 MESH_SHARDS = 4  # logical shards on the one card (Mesh((cuda:0,) * 4))
 DIGEST_KEYS = ("branch", "guide_tree", "n_lcbs", "n_intervals",
                "xmfa_sha256", "backbone_sha256", "bbcols_sha256")
+HEADLINE_KEYS = (*DIGEST_KEYS, "n_anchors", "accuracy")
+HEADLINE_SIZE = 4_600_000
+POOL_WORKERS = 4  # the tree_pool phase's MAUVE_TP_WORKERS
 
 
 def say(msg: str) -> None:
     print(msg, flush=True)
+
+
+def hold(label: str, got: dict, golden: dict, keys) -> None:
+    """Exit non-zero at the first of `keys` where the run's digest differs
+    from the golden's, or that either lacks."""
+    for k in keys:
+        if k not in golden or k not in got:
+            raise SystemExit(f"{label}: {k} missing from the {'golden' if k not in golden else 'run'}")
+        if got[k] != golden[k]:
+            raise SystemExit(f"{label}: {k} = {got[k]!r}, golden {golden[k]!r}")
+
+
+def enterobacteria_digest(res, branch: str, genomes, truths, bbcols_name: str,
+                          progressive: dict = None) -> dict:
+    """The fields of an enterobacteria golden (scripts/make_port_golden.py
+    enterobacteria_golden): the progressive digest (`progressive` when the
+    caller has it already: writing the XMFA is most of its cost), the
+    anchor count and each (0, i) pair's sn / ppv against the simulation
+    truths."""
+    got = dict(progressive or digest.progressive_digest(res, branch, bbcols_name))
+    got["n_anchors"] = len(res.mums)
+    got["accuracy"] = digest.pair_accuracy(res.interval_list, truths, [len(g) for g in genomes])
+    return got
+
+
+def peak_rss_gib() -> float:
+    """This process's peak resident set so far, in GiB (Linux counts
+    ru_maxrss in KiB)."""
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
 
 
 def record_time(stats: dict, side: int, B: int, ms: float, plain_ms: float, bound,
@@ -423,7 +463,7 @@ def progressive_run(genomes, golden: dict, label: str, dev, need: tuple, mesh=No
     """One ProgressiveMauve.align on the card (over `mesh` when given) with
     every launch count set to 0 just before it; held to the golden digest;
     returns seconds, launches, the result and its digest."""
-    pm = ProgressiveMauve(ProgressiveOptions(device=str(dev), mesh=mesh))
+    pm = ProgressiveMauve(ProgressiveOptions(use_sml_cache=False, device=str(dev), mesh=mesh))
     timing.GLOBAL.reset()
     gotoh_cuda.reset_launches()
     torch.cuda.reset_peak_memory_stats()
@@ -435,19 +475,20 @@ def progressive_run(genomes, golden: dict, label: str, dev, need: tuple, mesh=No
     launches = dict(gotoh_cuda.LAUNCHES)
     shapes = list(gotoh_cuda.LAUNCH_SHAPES)
     branch = "tree" if "tree_progressive" in timing.GLOBAL.phases else "extant"
+    t0 = time.perf_counter()
     got = digest.progressive_digest(res, branch, golden["bbcols_name"])
+    digest_secs = time.perf_counter() - t0
     say(f"{label}: {secs:.3f} s, {json.dumps(got)}, launches {launches}, "
         f"dp_cells {timing.GLOBAL.counters.get('dp_cells', 0):.0f}, "
         f"dp_calls {timing.GLOBAL.counters.get('dp_calls', 0):.0f}{sharded_note()}")
     say(f"{label} per-phase report:\n" + timing.GLOBAL.report().rstrip())
     say(f"{label} peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
-    for k in DIGEST_KEYS:
-        if got[k] != golden[k]:
-            raise SystemExit(f"{label}: {k} = {got[k]!r}, golden {golden[k]!r}")
+    hold(label, got, golden, DIGEST_KEYS)
     for k in need:
         if launches[k] <= 0:
             raise SystemExit(f"{label}: kernel {k} was never launched")
-    return {"seconds": secs, "launches": launches, "shapes": shapes, "result": res, "digest": got}
+    return {"seconds": secs, "launches": launches, "shapes": shapes, "result": res, "digest": got,
+            "digest_seconds": digest_secs, "counters": dict(timing.GLOBAL.counters)}
 
 
 def load_golden(name: str, genomes) -> dict:
@@ -487,25 +528,69 @@ def config3(dev, genomes, mesh=None) -> dict:
     return runs
 
 
-def tree_branch(dev, built) -> dict:
-    """9 x 1 Mbp enterobacteria-like genomes (the generator of
-    scripts/bench_enterobacteria.py, built in a worker process: `built` is
-    its future), default options: the gate must take the tree-progressive
-    branch; each (0, i) pair's sn / ppv against the simulation truths must
-    equal the golden's."""
-    genomes, truths = take_built("tree", built)
-    golden = load_golden("tree_golden.json", genomes)
-    r = progressive_run(
-        genomes, golden, "tree", dev, ("gotoh_forward_codes", "gotoh_traceback")
-    )
+def tree_run(genomes, truths, golden: dict, label: str, dev, need: tuple) -> dict:
+    """One tree-branch run (progressive_run), its gate branch, anchor count
+    and per-pair sn / ppv held to the golden too."""
+    r = progressive_run(genomes, golden, label, dev, need)
     if r["digest"]["branch"] != "tree":
-        raise SystemExit("tree: the gate did not choose the tree-progressive branch")
-    acc = digest.pair_accuracy(r["result"].interval_list, truths, [len(g) for g in genomes])
-    for a in acc:
-        say(f"tree pair {a['pair']}: sn {a['sn']:.6f} ppv {a['ppv']:.6f}")
-    if acc != golden["accuracy"]:
-        raise SystemExit(f"tree: accuracy {acc} differs from the golden {golden['accuracy']}")
+        raise SystemExit(f"{label}: the gate did not choose the tree-progressive branch")
+    t0 = time.perf_counter()
+    got = enterobacteria_digest(r["result"], "tree", genomes, truths, golden["bbcols_name"],
+                                r["digest"])
+    for a in got["accuracy"]:
+        say(f"{label} pair {a['pair']}: sn {a['sn']:.6f} ppv {a['ppv']:.6f}")
+    say(f"{label}: {got['n_anchors']} anchors; scoring took {time.perf_counter() - t0:.1f} s "
+        f"(after the digest's {r['digest_seconds']:.1f} s)")
+    hold(label, got, golden, [k for k in HEADLINE_KEYS if k in golden])
+    r["digest"] = got
+    return r
+
+
+def tree_branch(dev, genomes, truths) -> dict:
+    """9 x 1 Mbp enterobacteria-like genomes (the generator of
+    scripts/bench_enterobacteria.py), default options: the gate must take
+    the tree-progressive branch; each (0, i) pair's sn / ppv against the
+    simulation truths must equal the golden's."""
+    golden = load_golden("tree_golden.json", genomes)
+    r = tree_run(genomes, truths, golden, "tree", dev, ("gotoh_forward_codes", "gotoh_traceback"))
     return {"seconds": r["seconds"], "launches": r["launches"]}
+
+
+def tree_pool(dev, genomes, truths, serial: dict) -> dict:
+    """The tree branch's genomes once more with the ladder's independent
+    merges on a pool of POOL_WORKERS threads: the same golden, and launch
+    counts equal to the serial run's."""
+    golden = load_golden("tree_golden.json", genomes)
+    with mock.patch.dict(os.environ, {"MAUVE_TP_WORKERS": str(POOL_WORKERS)}):
+        r = tree_run(genomes, truths, golden, "tree_pool", dev,
+                     ("gotoh_forward_codes", "gotoh_traceback"))
+    if "tp_ladder_wall_s" not in r["counters"]:
+        raise SystemExit("tree_pool: the ladder did not run on its thread pool")
+    say(f"tree_pool: wall {r['seconds']:.3f} s with {POOL_WORKERS} ladder workers, "
+        f"{serial['seconds']:.3f} s serial; ladder {r['counters']['tp_ladder_wall_s']:.3f} s "
+        f"({card_line()})")
+    say("tree_pool: launches per kernel pooled / serial: " + ", ".join(
+        f"{k} {r['launches'][k]} / {serial['launches'][k]}" for k in KERNELS))
+    if r["launches"] != serial["launches"]:
+        raise SystemExit(f"tree_pool: launches {r['launches']} differ from the serial run's "
+                         f"{serial['launches']}")
+    return {"seconds": r["seconds"], "launches": r["launches"]}
+
+
+def headline(dev, genomes, truths) -> dict:
+    """BASELINE.md's headline: 9 x 4.6 Mbp enterobacteria-like genomes
+    through ProgressiveMauve(use_sml_cache=False) once, on the
+    tree-progressive branch, held to every field of headline_golden.json;
+    prints the wall, the phase split, launches, peak device memory and the
+    process's peak resident set."""
+    golden = load_golden("headline_golden.json", genomes)
+    say(f"headline genomes match the golden sha256 ({sum(len(g) for g in genomes):,} bases)")
+    r = tree_run(genomes, truths, golden, "headline", dev, tuple(KERNELS))
+    say(f"headline: wall {r['seconds']:.3f} s, launches {r['launches']}, peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, peak resident set of this "
+        f"process so far {peak_rss_gib():.2f} GiB; JAX package on the CPU "
+        f"{golden['jax_cpu_seconds']:.1f} s ({card_line()})")
+    return {"seconds": r["seconds"], "launches": r["launches"], "shapes": r["shapes"]}
 
 
 def repeatoire_run(genome, golden: dict, label: str, dev) -> dict:
@@ -550,6 +635,20 @@ def config4(dev) -> dict:
     say("config4 genome matches the golden sha256")
     return {label: repeatoire_run(genome, golden, f"config4 {label}", dev)
             for label in ("cold", "warm")}
+
+
+def config4_chrom(dev) -> dict:
+    """Config 4's generator with every spacer 20x as long: a whole
+    4,606,000 bp chromosome with the same planted families, default
+    RepeatoireOptions, once."""
+    genome = simulate.planted_repeats(20)
+    golden = load_golden("config4_chrom_golden.json", [genome])
+    say(f"config4_chrom genome matches the golden sha256 ({len(genome):,} bp)")
+    r = repeatoire_run(genome, golden, "config4_chrom", dev)
+    say(f"config4_chrom: wall {r['seconds']:.3f} s, peak resident set of this process so far "
+        f"{peak_rss_gib():.2f} GiB; JAX package on the CPU {golden['jax_cpu_seconds']:.1f} s "
+        f"({card_line()})")
+    return r
 
 
 def config4_big(dev) -> dict:
@@ -704,6 +803,8 @@ def build_inputs(kind: str):
     t0 = time.perf_counter()
     if kind == "tree":
         out = simulate.enterobacteria_like(1_000_000, 9, 0.08)
+    elif kind == "headline":
+        out = simulate.enterobacteria_like(HEADLINE_SIZE, 9, 0.08)
     elif kind == "config5_wide":
         out = simulate.draft_genomes(500_000, 21, 20)
     else:
@@ -731,13 +832,14 @@ def main() -> int:
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 1
     t_start = time.perf_counter()
-    # the two largest host genome builds (per-base Python loops) run in
-    # worker processes while the kernels build and are checked; spawn, as
-    # this process is about to use CUDA
+    # the three largest host genome builds (per-base Python loops) run in
+    # worker processes while the kernels build and are checked and the
+    # earlier phases run; spawn, as this process is about to use CUDA
+    kinds = ("tree", "config5_wide", "headline")
     with concurrent.futures.ProcessPoolExecutor(
-        max_workers=2, mp_context=multiprocessing.get_context("spawn")
+        max_workers=len(kinds), mp_context=multiprocessing.get_context("spawn")
     ) as pool:
-        built = {kind: pool.submit(build_inputs, kind) for kind in ("tree", "config5_wide")}
+        built = {kind: pool.submit(build_inputs, kind) for kind in kinds}
         kernels, mesh_summary = run_phases(built)
     say(f"mesh summary: {json.dumps(mesh_summary)}")
     say(f"chip_smoke total: {time.perf_counter() - t_start:.1f} s")
@@ -776,7 +878,9 @@ def run_phases(built):
     runs2 = config2(dev)
     c3_genomes = config3_genomes()
     runs3 = config3(dev, c3_genomes)
-    runs_tree = tree_branch(dev, built["tree"])
+    tree_genomes, tree_truths = take_built("tree", built["tree"])
+    runs_tree = tree_branch(dev, tree_genomes, tree_truths)
+    runs_pool = tree_pool(dev, tree_genomes, tree_truths, runs_tree)
     runs4 = config4(dev)
     runs4_big = config4_big(dev)
     t0 = time.perf_counter()
@@ -806,10 +910,18 @@ def run_phases(built):
             f"on one device, warm ({card_line()})")
     pg = process_group_search(dev, c1_genomes)
 
+    # the sizes users run: a whole chromosome (while the headline's genomes
+    # finish building), then the headline
+    runs4_chrom = config4_chrom(dev)
+    h_genomes, h_truths = take_built("headline", built["headline"])
+    runs_headline = headline(dev, h_genomes, h_truths)
+    del h_genomes, h_truths
+
     mainpath2 = mainpath_times(dev, runs2["cold"]["shapes"], "2")
     mainpath = mainpath_times(dev, runs3["cold"]["shapes"], "3")
     mainpath4 = mainpath_times(dev, runs4["cold"]["shapes"], "4")
     mainpath5 = mainpath_times(dev, runs5["cold"]["shapes"], "5")
+    mainpath_h = mainpath_times(dev, runs_headline["shapes"], "headline")
 
     kernels = []
     for name, replaces in KERNELS.items():
@@ -828,8 +940,11 @@ def run_phases(built):
                 "config2": runs2["cold"]["launches"][name],
                 "config3": runs3["cold"]["launches"][name],
                 "tree": runs_tree["launches"][name],
+                "tree_pool": runs_pool["launches"][name],
                 "config4": runs4["cold"]["launches"][name],
                 "config4_big": runs4_big["launches"][name],
+                "config4_chrom": runs4_chrom["launches"][name],
+                "headline": runs_headline["launches"][name],
                 "config5": runs5["cold"]["launches"][name],
                 "config5_wide": runs5_wide["launches"][name],
                 **{k: r["launches"][name] for k, r in mesh_runs.items()},
@@ -849,7 +964,8 @@ def run_phases(built):
             "mainpath_ms": m["ms"],
             "mainpath_bound_ms": m["bound_ms"],
             "mainpath_launches": m["launches"],
-            # config 2's, 4's and 5's cold-run launch lists replayed the same way
+            # config 2's, 4's, 5's and the headline's cold-run launch lists
+            # replayed the same way
             "mainpath_config2_ms": mainpath2[name]["ms"],
             "mainpath_config2_bound_ms": mainpath2[name]["bound_ms"],
             "mainpath_config2_launches": mainpath2[name]["launches"],
@@ -859,6 +975,9 @@ def run_phases(built):
             "mainpath_config5_ms": mainpath5[name]["ms"],
             "mainpath_config5_bound_ms": mainpath5[name]["bound_ms"],
             "mainpath_config5_launches": mainpath5[name]["launches"],
+            "mainpath_headline_ms": mainpath_h[name]["ms"],
+            "mainpath_headline_bound_ms": mainpath_h[name]["bound_ms"],
+            "mainpath_headline_launches": mainpath_h[name]["launches"],
         })
         if name in large:
             # the largest side checked: above shared memory, the device slab
@@ -870,7 +989,8 @@ def run_phases(built):
                                mainpath_chain_floor_ms=m["chain_floor_ms"],
                                mainpath_after_forward_ms=m["after_forward_ms"],
                                mainpath_config4_chain_floor_ms=mainpath4[name]["chain_floor_ms"],
-                               mainpath_config5_chain_floor_ms=mainpath5[name]["chain_floor_ms"])
+                               mainpath_config5_chain_floor_ms=mainpath5[name]["chain_floor_ms"],
+                               mainpath_headline_chain_floor_ms=mainpath_h[name]["chain_floor_ms"])
     return kernels, {
         "shards": MESH_SHARDS,
         "seconds": {k: r["seconds"] for k, r in mesh_runs.items()},

@@ -545,10 +545,34 @@ def merge_plan(genomes, tree) -> Tuple[List[Tuple[str, object, object]], object]
     return tasks, build(tree)
 
 
+def _in_callers_context(fn):
+    """fn wrapped to run under the calling thread's ambient mesh and current
+    CUDA device.  Both are per thread (parallel/context.py, the CUDA
+    runtime): a pool worker would otherwise drop a mesh the caller entered
+    with use_mesh, running its batches unsplit, and launch on device 0."""
+    import contextlib
+
+    import torch
+
+    from mauvealigner_tpu_torch.parallel.context import active_mesh, use_mesh
+
+    mesh = active_mesh()
+    cuda_dev = torch.cuda.current_device() if torch.cuda.is_initialized() else None
+
+    def run(*args):
+        dev_ctx = (torch.cuda.device(cuda_dev) if cuda_dev is not None
+                   else contextlib.nullcontext())
+        with use_mesh(mesh), dev_ctx:
+            return fn(*args)
+
+    return run
+
+
 def tree_progressive_align(
     genomes: Sequence[Genome],
     tree,
     aligner_factory,
+    max_workers: Optional[int] = None,
     translated_fn=None,
     profile_closure: bool = True,
     scoring_fn=None,
@@ -560,14 +584,21 @@ def tree_progressive_align(
 
     aligner_factory() -> a configured MauveAligner for one pairwise node
     merge (a fresh instance per node: the aligner caches per-run state).
-    Merges run in post-order, one at a time: each is a pure function of its
-    two child profiles.  (The JAX package's opt-in thread pool over
-    independent sibling merges is not ported.)"""
+
+    Independent merges (sibling subtrees whose children are both ready) run
+    concurrently on a thread pool of max_workers threads (None reads
+    MAUVE_TP_WORKERS, default 1: the serial post-order).  Each merge is a
+    pure function of its two child profiles, so results are identical to
+    the serial order.  Workers run under the caller's ambient mesh and CUDA
+    device, and launch on their thread's current stream."""
+    import os
     import time
 
     from mauvealigner_tpu_torch.utils import timing
 
     tasks, root_ref = merge_plan(genomes, tree)
+    if max_workers is None:
+        max_workers = int(os.environ.get("MAUVE_TP_WORKERS", "1"))
     profiles: Dict[object, NodeProfile] = {}
     for name, l, r in tasks:
         for ref in (l, r):
@@ -576,12 +607,42 @@ def tree_progressive_align(
     if not tasks:  # single leaf
         profiles[root_ref] = leaf_profile(root_ref[1], genomes[root_ref[1]])
 
-    for t, (name, l, r) in enumerate(tasks):
-        profiles[("task", t)] = merge_profiles(
-            genomes, profiles[l], profiles[r], aligner_factory, name,
-            translated_fn, profile_closure, scoring_fn,
-            prune_private, prune_private_max_run,
-        )
+    if max_workers <= 1 or len(tasks) <= 1:
+        for t, (name, l, r) in enumerate(tasks):
+            profiles[("task", t)] = merge_profiles(
+                genomes, profiles[l], profiles[r], aligner_factory, name,
+                translated_fn, profile_closure, scoring_fn,
+                prune_private, prune_private_max_run,
+            )
+    else:
+        import concurrent.futures as cf
+
+        merge = _in_callers_context(merge_profiles)
+        t0 = time.perf_counter()
+        remaining = set(range(len(tasks)))
+        with cf.ThreadPoolExecutor(max_workers=max_workers) as ex:
+            pending: Dict[object, int] = {}
+            while remaining or pending:
+                for t in sorted(remaining):
+                    name, l, r = tasks[t]
+                    if l in profiles and r in profiles:
+                        remaining.discard(t)
+                        fut = ex.submit(
+                            merge, genomes,
+                            profiles[l], profiles[r], aligner_factory, name,
+                            translated_fn, profile_closure, scoring_fn,
+                            prune_private, prune_private_max_run,
+                        )
+                        pending[fut] = t
+                if not pending:  # malformed DAG (cannot happen from a tree)
+                    raise RuntimeError(
+                        f"merge plan stalled with tasks {sorted(remaining)} unready"
+                    )
+                done, _ = cf.wait(list(pending), return_when=cf.FIRST_COMPLETED)
+                for fut in done:
+                    t = pending.pop(fut)
+                    profiles[("task", t)] = fut.result()  # re-raises errors
+        timing.GLOBAL.add("tp_ladder_wall_s", time.perf_counter() - t0)
 
     root = profiles[root_ref]
     t0 = time.perf_counter()

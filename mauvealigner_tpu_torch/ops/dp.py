@@ -326,10 +326,10 @@ def _code_pairs_launch(ca, cb, la, lb, subst, gap_open, gap_extend, device):
     `device`: (ops, counts, scores) tensors there."""
     from mauvealigner_tpu_torch.ops import gotoh_cuda  # imports this module
 
-    gotoh_cuda.LAUNCH_SHAPES.append(dict(
+    gotoh_cuda.record_shape(
         kernel="gotoh_forward_codes", M=ca.shape[1], N=cb.shape[1], B=ca.shape[0],
         lens_a=la.copy(), lens_b=lb.copy(), normalize=False,
-    ))
+    )
     ca = torch.from_numpy(np.ascontiguousarray(ca, np.uint8)).to(device)
     cb = torch.from_numpy(np.ascontiguousarray(cb, np.uint8)).to(device)
     la = torch.from_numpy(la).to(device)
@@ -394,10 +394,10 @@ def _profiles_launch(pa, pb, la, lb, subst, gap_open, gap_extend, normalize, dev
     `device`: (ops, counts, scores) tensors there."""
     from mauvealigner_tpu_torch.ops import gotoh_cuda  # imports this module
 
-    gotoh_cuda.LAUNCH_SHAPES.append(dict(
+    gotoh_cuda.record_shape(
         kernel="gotoh_forward_profiles", M=pa.shape[1], N=pb.shape[1], B=pa.shape[0],
         lens_a=la.copy(), lens_b=lb.copy(), normalize=bool(normalize),
-    ))
+    )
 
     def ship(p):
         if p.dtype != np.uint8:

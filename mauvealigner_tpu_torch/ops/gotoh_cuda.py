@@ -13,7 +13,9 @@ the plain-torch version in ops/dp.py.  LAUNCHES counts the kernel launches
 of each wrapper (plain-version calls are not counted).  LAUNCH_SHAPES lists
 the shape of every forward launch of dp.align_*_batch_async (one per mesh
 shard under a mesh), made from the lengths they hold on the host: a
-replayable record of a run's launches.  Each launch runs with its inputs'
+replayable record of a run's launches.  Both are updated under one lock
+(count_launch, record_shape): the tree ladder's pool launches from several
+threads.  Each launch runs with its inputs'
 device made current, so a mesh shard on another card launches there.
 
 The forward kernels write only the live rectangle of each problem
@@ -27,6 +29,7 @@ not fit a block's shared memory (codes above side 8192, profiles above
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Tuple
 
 import torch
@@ -37,12 +40,26 @@ LAUNCHES = {"gotoh_forward_codes": 0, "gotoh_forward_profiles": 0, "gotoh_traceb
 # one dict per forward call of dp.align_*_batch_async: kernel, M, N, B,
 # lens_a, lens_b (host int32 arrays) and normalize
 LAUNCH_SHAPES: list = []
+_launch_lock = threading.Lock()
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-    LAUNCH_SHAPES.clear()
+    with _launch_lock:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+        LAUNCH_SHAPES.clear()
+
+
+def count_launch(name: str) -> None:
+    with _launch_lock:
+        LAUNCHES[name] += 1
+
+
+def record_shape(**shape) -> None:
+    """Append one forward call's shape (kernel, M, N, B, lens_a, lens_b,
+    normalize) to LAUNCH_SHAPES."""
+    with _launch_lock:
+        LAUNCH_SHAPES.append(shape)
 
 
 def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape, device) -> None:
@@ -140,7 +157,7 @@ def _forward_codes_launch(codes_a, codes_b, lens_a, lens_b, subst, gap_open, gap
             go_ge, ge, B, M, N, 0, 0, slab_ptr, _ptr(scores), _ptr(dec), _stream(dev),
         )
     _raise_on_error(lib, err, "gotoh_forward_codes")
-    LAUNCHES["gotoh_forward_codes"] += 1
+    count_launch("gotoh_forward_codes")
     return scores, dec
 
 
@@ -196,7 +213,7 @@ def _forward_profiles_launch(prof_a, prof_b, lens_a, lens_b, subst, gap_open, ga
             _ptr(dec), _stream(dev),
         )
     _raise_on_error(lib, err, "gotoh_forward_profiles")
-    LAUNCHES["gotoh_forward_profiles"] += 1
+    count_launch("gotoh_forward_profiles")
     return scores, dec
 
 
@@ -239,5 +256,5 @@ def _traceback_launch(dec, lens_a, lens_b):
             _stream(dev),
         )
     _raise_on_error(lib, err, "gotoh_traceback")
-    LAUNCHES["gotoh_traceback"] += 1
+    count_launch("gotoh_traceback")
     return ops, counts

@@ -45,10 +45,23 @@ mauvealigner_tpu_torch/data/, which chip_smoke.py holds the port to:
         the first draft (utils/digest.draft_cli_digest);
   5wide config5_wide_golden.json: the same workflow at BASELINE's "20+
         drafts": a 500 kbp reference and 20 drafts of 20 contigs (one
-        contig per 25 kbp, config 5's density), without the command lines.
+        contig per 25 kbp, config 5's density), without the command lines;
+  headline  headline_golden.json: the tree fields at the system's headline
+        size, 9 x 4.6 Mbp (enterobacteria_like(4_600_000, 9, 0.08), the
+        genomes of scripts/bench_enterobacteria.py), plus the anchor count
+        and the JAX run's CPU seconds (about 15 minutes on 8 CPU cores:
+        a 6.5 minute genome build, then the run);
+  4chrom  config4_chrom_golden.json: the 4big fields on a whole bacterial
+        chromosome, every spacer 20x (planted_repeats(20), 4,606,000 bp;
+        about 2 minutes).
 
-Usage:  JAX_PLATFORMS=cpu python scripts/make_port_golden.py [1] [2] [3] [tree] [4] [4big] [5] [5wide]
-        (no argument: all eight)
+The progressive and repeatoire goldens record the JAX run's wall seconds
+on the CPU as "jax_cpu_seconds".
+
+Usage:  JAX_PLATFORMS=cpu python scripts/make_port_golden.py [1] [2] [3] [tree] [4] [4big]
+            [5] [5wide] [headline] [4chrom]
+        (no argument: all ten; headline and 4chrom are best run in the
+        background with nohup and a log)
 """
 
 import argparse
@@ -80,6 +93,7 @@ from mauvealigner_tpu_torch.utils import digest  # noqa: E402
 from mauvealigner_tpu_torch.utils import simulate as port_simulate  # noqa: E402
 
 GENOME_SIZE = 1_000_000
+HEADLINE_SIZE = 4_600_000
 SEED = 37
 DATA = os.path.join(os.path.dirname(__file__), "..", "mauvealigner_tpu_torch", "data")
 
@@ -118,6 +132,7 @@ def _progressive(genomes, label: str, bbcols_name: str) -> dict:
         "genome_lengths": [len(g) for g in genomes],
         "bbcols_name": bbcols_name,
         **digest.progressive_digest(res, branch, bbcols_name),
+        "jax_cpu_seconds": seconds,
     }
     print(f"{label}: reference run took {seconds:.1f} s on the CPU", file=sys.stderr)
     return golden, res
@@ -134,23 +149,38 @@ def config3() -> None:
     _write("config3_golden.json", golden)
 
 
-def tree_branch() -> None:
-    # the port's generator gives the same genomes as
-    # scripts/bench_enterobacteria.build_genomes(1_000_000, 9, 0.08)
+def enterobacteria_golden(size: int, k: int, label: str, bbcols_name: str) -> dict:
+    """The tree-branch golden of enterobacteria_like(size, k, 0.08): the
+    progressive digest, the anchor count and each (0, i) pair's sn / ppv
+    against the simulation truths.  The port's generator gives the same
+    genomes as scripts/bench_enterobacteria.build_genomes(size, k, 0.08)."""
     t0 = time.perf_counter()
-    pg, truths = port_simulate.enterobacteria_like(GENOME_SIZE, 9, 0.08)
+    pg, truths = port_simulate.enterobacteria_like(size, k, 0.08)
     print(f"genomes built in {time.perf_counter() - t0:.1f} s", file=sys.stderr)
     genomes = [simulate.Genome(g.seq.copy(), name=g.name) for g in pg]
-    golden, res = _progressive(
-        genomes,
-        "9 x 1 Mbp enterobacteria-like (utils/simulate.enterobacteria_like("
-        "1_000_000, 9, 0.08), seed 37), ProgressiveOptions(use_sml_cache=False)",
-        "tree.xmfa.bbcols",
-    )
+    golden, res = _progressive(genomes, label, bbcols_name)
+    golden["n_anchors"] = len(res.mums)
     golden["accuracy"] = digest.pair_accuracy(
         interop.interval_list(res.interval_list), truths, [len(g) for g in pg]
     )
-    _write("tree_golden.json", golden)
+    return golden
+
+
+def tree_branch() -> None:
+    _write("tree_golden.json", enterobacteria_golden(
+        GENOME_SIZE, 9,
+        "9 x 1 Mbp enterobacteria-like (utils/simulate.enterobacteria_like("
+        "1_000_000, 9, 0.08), seed 37), ProgressiveOptions(use_sml_cache=False)",
+        "tree.xmfa.bbcols"))
+
+
+def headline() -> None:
+    _write("headline_golden.json", enterobacteria_golden(
+        HEADLINE_SIZE, 9,
+        "BASELINE.md's headline, 9 x 4.6 Mbp enterobacteria-like (utils/simulate."
+        "enterobacteria_like(4_600_000, 9, 0.08), seed 37: the genomes of "
+        "scripts/bench_enterobacteria.py), ProgressiveOptions(use_sml_cache=False)",
+        "headline.xmfa.bbcols"))
 
 
 def config1() -> None:
@@ -223,6 +253,7 @@ def _repeatoire(spacer_scale: int, name: str, label: str) -> None:
         "genome_sha256": digest.genome_sha256([g]),
         "genome_lengths": [len(g)],
         **digest.repeatoire_digest(repeatoire, write_match_list, g, fams, ml),
+        "jax_cpu_seconds": seconds,
     }
     _write(name, golden)
     print(f"{label}: reference run took {seconds:.1f} s on the CPU", file=sys.stderr)
@@ -238,6 +269,12 @@ def config4_big() -> None:
     _repeatoire(4, "config4_big_golden.json",
                 "config 4 at bacterial scale: seed 37, every spacer 4x "
                 "(926 kbp), default RepeatoireOptions, with --seeds")
+
+
+def config4_chrom() -> None:
+    _repeatoire(20, "config4_chrom_golden.json",
+                "config 4 on a whole bacterial chromosome: seed 37, every spacer 20x "
+                "(4,606,000 bp), default RepeatoireOptions, with --seeds")
 
 
 def _jax_genome(g):
@@ -303,11 +340,11 @@ def config5_wide() -> None:
 
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("configs", nargs="*",
-                   choices=["1", "2", "3", "tree", "4", "4big", "5", "5wide"], default=[])
-    a = p.parse_args()
     run = {"1": config1, "2": config2, "3": config3, "tree": tree_branch, "4": config4,
-           "4big": config4_big, "5": config5, "5wide": config5_wide}
+           "4big": config4_big, "5": config5, "5wide": config5_wide, "headline": headline,
+           "4chrom": config4_chrom}
+    p.add_argument("configs", nargs="*", choices=list(run), default=[])
+    a = p.parse_args()
     for c in a.configs or list(run):
         run[c]()
     return 0

@@ -1,7 +1,9 @@
 """Where a progressive run's time goes on the GPU, for the PyTorch port.
 
 Builds config 3 (9 x 250 kbp, scripts/bench_configs.py), the 9 x 1 Mbp
-enterobacteria-like genomes of the tree-progressive branch, or config 5's
+enterobacteria-like genomes of the tree-progressive branch (--size sets
+their length: 4600000 gives BASELINE.md's headline, the genomes of
+scripts/bench_enterobacteria.py), or config 5's
 draft workflow (a 150 kbp reference and 7 drafts of 6 contigs; 5wide: a
 500 kbp reference and 20 drafts of 20 contigs), runs it on cuda:0 once to
 warm up (kernel build, allocator), then once under torch.profiler (CUDA
@@ -11,7 +13,8 @@ report (of the progressive run), the kernels by device time, one line per
 Gotoh kernel (launches and device ms) and the device busy and idle shares
 of the profiled run, with the card's name and power limit.
 
-Usage:  python scripts/profile_port_progressive.py [3|tree|5|5wide] [--trace PATH] [--root DIR]
+Usage:  python scripts/profile_port_progressive.py [3|tree|5|5wide] [--size N] [--trace PATH]
+            [--root DIR]
 
 `--root DIR` imports the port's package from DIR (another checkout, for
 example the parent commit unpacked into a git-ignored directory), so two
@@ -33,11 +36,11 @@ GOTOH_KERNELS = ("gotoh_forward_codes_kernel", "gotoh_forward_profiles_kernel",
                  "gotoh_traceback_kernel")
 
 
-def genomes_of(config: str):
+def genomes_of(config: str, size: int):
     from mauvealigner_tpu_torch.utils import simulate
 
     if config == "tree":
-        return simulate.enterobacteria_like(1_000_000, 9, 0.08)[0]
+        return simulate.enterobacteria_like(size, 9, 0.08)[0]
     rng = np.random.default_rng(37)
     anc = simulate.random_genome(rng, 250_000)
     out = [anc]
@@ -46,7 +49,7 @@ def genomes_of(config: str):
     return out
 
 
-def workload(config: str):
+def workload(config: str, size: int):
     """A callable that runs the configuration once on cuda."""
     from mauvealigner_tpu_torch.models import aligner
     from mauvealigner_tpu_torch.models.progressive import ProgressiveMauve, ProgressiveOptions
@@ -63,7 +66,7 @@ def workload(config: str):
             timing.GLOBAL.reset()
             pm.align([ref] + reordered)
         return run
-    genomes = genomes_of(config)
+    genomes = genomes_of(config, size)
     pm = ProgressiveMauve(ProgressiveOptions(device="cuda"))
     return lambda: pm.align(genomes)
 
@@ -71,6 +74,8 @@ def workload(config: str):
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("config", nargs="?", default="3", choices=["3", "tree", "5", "5wide"])
+    p.add_argument("--size", type=int, default=1_000_000,
+                   help="genome length of the tree configuration")
     p.add_argument("--trace", default="")
     p.add_argument("--root", default=os.path.join(os.path.dirname(__file__), ".."))
     a = p.parse_args()
@@ -85,7 +90,7 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip()
     print(card)
-    run = workload(a.config)
+    run = workload(a.config, a.size)
     run()  # warm-up
     torch.cuda.synchronize()
     timing.GLOBAL.reset()

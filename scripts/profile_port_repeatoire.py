@@ -2,14 +2,16 @@
 
 Builds BASELINE config 4 (the 236 kbp planted-family genome of
 scripts/bench_configs.py config4, utils/simulate.planted_repeats) or its
-bacterial-scale variant (every spacer 4x, 926 kbp), runs
+bacterial-scale variant (every spacer 4x, 926 kbp; --spacer-scale sets
+the factor: 20 gives a whole 4,606,000 bp chromosome), runs
 Repeatoire.find_repeats with default options on cuda:0 once to warm up
 (kernel build, allocator), then once under torch.profiler (CUDA activity).
 Prints the per-phase host report, the kernels by device time, one line per
 Gotoh kernel (launches and device ms) and the device busy and idle shares of
 the profiled run, with the card's name and power limit.
 
-Usage:  python scripts/profile_port_repeatoire.py [4|4big] [--trace PATH] [--root DIR]
+Usage:  python scripts/profile_port_repeatoire.py [4|4big] [--spacer-scale N] [--trace PATH]
+            [--root DIR]
 
 `--root DIR` imports the port's package from DIR (another checkout), so two
 versions run the same configuration in turns, one process each.
@@ -32,6 +34,8 @@ GOTOH_KERNELS = ("gotoh_forward_codes_kernel", "gotoh_forward_profiles_kernel",
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("config", nargs="?", default="4", choices=["4", "4big"])
+    p.add_argument("--spacer-scale", type=int, default=0,
+                   help="multiply every spacer by N (4big: 4, 4: 1)")
     p.add_argument("--trace", default="")
     p.add_argument("--root", default=os.path.join(os.path.dirname(__file__), ".."))
     a = p.parse_args()
@@ -47,7 +51,7 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip()
     print(card)
-    genome = simulate.planted_repeats(4 if a.config == "4big" else 1)
+    genome = simulate.planted_repeats(a.spacer_scale or (4 if a.config == "4big" else 1))
     rp = Repeatoire(RepeatoireOptions(device="cuda"))
     rp.find_repeats(genome)  # warm-up
     torch.cuda.synchronize()

@@ -295,6 +295,34 @@ def test_progressive_gpu_matches_cpu(rng, cuda_device):
     assert min(out[str(cuda_device)][2].values()) > 0
 
 
+def test_pooled_ladder_gpu_launches_equal_serial(rng, cuda_device, monkeypatch):
+    """The tree ladder on the card with its merges on a pool of 4 threads
+    (MAUVE_TP_WORKERS=4): the serial run's XMFA and the same launch count
+    per kernel (the pool's threads count under one lock)."""
+    from mauvealigner_tpu_torch.models.progressive import ProgressiveMauve, ProgressiveOptions
+    from mauvealigner_tpu_torch.utils import timing
+
+    anc = simulate.random_genome(rng, 8000)
+    genomes = [simulate.evolve(anc, rng, sub_rate=0.06, ins_rate=0.002, del_rate=0.002)[0]
+               for _ in range(6)]
+    out = {}
+    for workers in ("1", "4"):
+        monkeypatch.setenv("MAUVE_TP_WORKERS", workers)
+        timing.GLOBAL.reset()
+        gotoh_cuda.reset_launches()
+        res = ProgressiveMauve(ProgressiveOptions(
+            seed_weight=9, tree_progressive=True, use_sml_cache=False, device=str(cuda_device),
+        )).align(genomes)
+        buf = io.StringIO()
+        res.interval_list.write_xmfa(buf)
+        out[workers] = (buf.getvalue(), dict(gotoh_cuda.LAUNCHES),
+                        "tp_ladder_wall_s" in timing.GLOBAL.counters)
+    assert out["4"][0] == out["1"][0]
+    assert out["4"][1] == out["1"][1]
+    assert out["4"][2] and not out["1"][2]
+    assert out["4"][1]["gotoh_forward_codes"] > 0 and out["4"][1]["gotoh_traceback"] > 0
+
+
 def test_progressive_mesh_gpu_matches_cpu(rng, cuda_device):
     """ProgressiveMauve (device search) under a mesh of three shards on the
     card: the CPU single-device XMFA and backbone rows, every kernel
