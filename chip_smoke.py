@@ -30,11 +30,16 @@ users run: BASELINE.md's headline, 9 x 4.6 Mbp enterobacteria-like genomes
 tree-progressive branch, and Repeatoire on a whole 4.6 Mbp chromosome
 (config 4's planted families, every spacer 20x); and the 9 x 1 Mbp tree
 branch once more with the ladder's thread pool (MAUVE_TP_WORKERS=4),
-whose launch counts must equal the serial run's.  Each run is held to the
+whose launch counts must equal the serial run's.  Last, config 5 at
+bacterial length, uncut: the draft workflow on a 4.6 Mbp reference and 20
+drafts of 184 contigs, then its front half again through
+sort_contigs_sharded under Mesh((cuda:0,) * 4) (BASELINE config 5's
+pod-sharded half at its real size).  Each run is held to the
 JAX package's outputs recorded in mauvealigner_tpu_torch/data/*_golden.json
 (mesh output is bit-identical to single-device output by design, so the
-mesh runs use the same files).  The tree branch's, config 5 wide's and the
-headline's genomes build in worker processes while the earlier phases run.
+mesh runs use the same files).  The tree branch's, config 5 wide's, the
+headline's and config 5 at bacterial length's genomes build in worker
+processes while the earlier phases run.
 
 Usage (from the repository root, one NVIDIA GPU):  python3 chip_smoke.py
 
@@ -42,9 +47,13 @@ Kernel checks compare scores exactly and the decision bytes on each
 problem's live rectangle (dp.live_cell_mask), the only bytes the forward
 kernels write; the traceback kernel is held to the plain traceback on the
 plain decisions and on each forward kernel's decisions with every byte
-outside the live rectangles poisoned (POISON).  After the driven paths,
+outside the live rectangles poisoned (POISON).  These comparisons run in
+a worker process beside the driven paths; the kernels and their plain
+versions are timed after the driven paths, in this process, with nothing
+else on the card.  Then
 config 2's, config 3's and config 4's cold-run launch lists
-(gotoh_cuda.LAUNCH_SHAPES), config 5's and the headline's, are replayed with random
+(gotoh_cuda.LAUNCH_SHAPES), config 5's, the headline's and config 5 at
+bacterial length's, are replayed with random
 contents at the recorded lengths (scripts/gotoh_replay.py): each kernel's
 summed ms, bound and roofline share print on the "main path" lines, and the
 traceback's chain floor beside its bound.
@@ -167,21 +176,63 @@ def poisoned_traceback_ok(dec, live, la, lb, ops_ref, cnt_ref) -> bool:
     return torch.equal(ops, ops_ref) and torch.equal(cnt, cnt_ref)
 
 
+def batch_of(side: int) -> int:
+    """Problems per checked batch at one bucket side."""
+    return 64 if side <= 512 else (16 if side <= 1024 else 10)
+
+
+def code_batches(dev):
+    """(side, host arrays, device tensors) of code pairs at every side in
+    SIDES, drawn from one seed: check_kernels' and time_kernels' inputs."""
+    rng = np.random.default_rng(2024)
+    for side in SIDES:
+        host = random_batch(rng, batch_of(side), side)
+        yield side, host, [torch.from_numpy(x).to(dev) for x in host]
+
+
+def profile_batches(dev):
+    """(side, host arrays, device tensors) of count profiles at every side
+    in SIDES, drawn from one seed: check_profile_kernel's and time_kernels'
+    inputs."""
+    rng = np.random.default_rng(2025)
+    for side in SIDES:
+        pa, pb, la, lb = random_profile_batch(rng, batch_of(side), side)
+        yield side, (pa, pb, la, lb), [torch.from_numpy(pa).to(dev).to(torch.float32),
+                                       torch.from_numpy(pb).to(dev).to(torch.float32),
+                                       torch.from_numpy(la).to(dev), torch.from_numpy(lb).to(dev)]
+
+
+def large_batches(dev):
+    """(name, side, host lengths, device inputs, kernel, plain version) of
+    each forward kernel at its LARGE_SIDES side (B = 2, live lengths above
+    the shared-memory limits), drawn from one seed: check_large_sides' and
+    time_kernels' inputs."""
+    rng = np.random.default_rng(2027)
+    for name, side in LARGE_SIDES.items():
+        lens = (np.array([side - 3, side // 2 + 7], np.int32),
+                np.array([side - 11, 900], np.int32))
+        if name == "gotoh_forward_profiles":
+            pa, pb, la_h, lb_h = random_profile_batch(rng, 2, side, lens)
+            x = [torch.from_numpy(pa).to(dev).to(torch.float32),
+                 torch.from_numpy(pb).to(dev).to(torch.float32)]
+            kernel, plain = gotoh_cuda.gotoh_forward_profiles, dp.gotoh_forward_profiles_ref
+        else:
+            ca, cb, la_h, lb_h = random_batch(rng, 2, side, lens)
+            x = [torch.from_numpy(ca).to(dev), torch.from_numpy(cb).to(dev)]
+            kernel, plain = gotoh_cuda.gotoh_forward_codes, dp.gotoh_forward_codes_ref
+        x += [torch.from_numpy(la_h).to(dev), torch.from_numpy(lb_h).to(dev)]
+        yield name, side, (la_h, lb_h), x, kernel, plain
+
+
 def check_profile_kernel(dev) -> dict:
     """The profile kernel against its plain-torch version at every bucket
     side, normalize off and on: scores and every byte of each problem's
-    live rectangle identical, tracebacks equal; times at TIMED_SIDES
-    (normalize off, the closure's mode)."""
-    rng = np.random.default_rng(2025)
+    live rectangle identical, tracebacks equal."""
     sub = torch.from_numpy(dp.HOXD70.copy()).to(dev)
     go, ge = dp.DEFAULT_GAP_OPEN, dp.DEFAULT_GAP_EXTEND
     stats = {"max_abs_err": 0.0}
-    for side in SIDES:
-        B = 64 if side <= 512 else (16 if side <= 1024 else 10)
-        pa_h, pb_h, la_h, lb_h = random_profile_batch(rng, B, side)
-        pa = torch.from_numpy(pa_h).to(dev).to(torch.float32)
-        pb = torch.from_numpy(pb_h).to(dev).to(torch.float32)
-        la, lb = torch.from_numpy(la_h).to(dev), torch.from_numpy(lb_h).to(dev)
+    for side, _, (pa, pb, la, lb) in profile_batches(dev):
+        B = batch_of(side)
         live = dp.live_cell_mask(la, lb, side, side)
         for normalize in (False, True):
             s_k, dec_k = gotoh_cuda.gotoh_forward_profiles(pa, pb, la, lb, sub, go, ge, normalize)
@@ -200,32 +251,17 @@ def check_profile_kernel(dev) -> dict:
             if not (err == 0.0 and same_dec and tb_ok and poison_ok):
                 raise SystemExit(f"profile kernel disagrees with its plain version at side {side}")
             stats["max_abs_err"] = max(stats["max_abs_err"], err)
-        if side in TIMED_SIDES:
-            reps_k = 20 if side <= 512 else 5
-            f_k = cuda_ms(lambda: gotoh_cuda.gotoh_forward_profiles(pa, pb, la, lb, sub, go, ge), reps_k)
-            f_p = cuda_ms(lambda: dp.gotoh_forward_profiles_ref(pa, pb, la, lb, sub, go, ge), 1)
-            bound = forward_bound("gotoh_forward_profiles", la_h, lb_h)
-            say(f"time side={side} B={B}: gotoh_forward_profiles kernel {f_k:.4f} ms, plain "
-                f"{f_p:.4f} ms, bound {bound[0]:.6f} ms ({bound[1]}), roofline share "
-                f"{bound[0] / f_k:.4f}")
-            record_time(stats, side, B, f_k, f_p, bound)
     return stats
 
 
 def check_kernels(dev) -> dict:
     """Each kernel against its plain-torch version on the card, at every
     bucket side the closure uses: forward scores and every byte of each
-    problem's live rectangle identical, tracebacks equal; times at
-    TIMED_SIDES."""
-    rng = np.random.default_rng(2024)
+    problem's live rectangle identical, tracebacks equal."""
     sub = torch.from_numpy(dp.HOXD70.copy()).to(dev)
     go, ge = dp.DEFAULT_GAP_OPEN, dp.DEFAULT_GAP_EXTEND
-    sm_mhz = sm_clock_mhz()
     stats = {k: {"max_abs_err": 0.0} for k in ("gotoh_forward_codes", "gotoh_traceback")}
-    for side in SIDES:
-        B = 64 if side <= 512 else (16 if side <= 1024 else 10)
-        ca_h, cb_h, la_h, lb_h = random_batch(rng, B, side)
-        ca, cb, la, lb = (torch.from_numpy(x).to(dev) for x in (ca_h, cb_h, la_h, lb_h))
+    for side, _, (ca, cb, la, lb) in code_batches(dev):
         live = dp.live_cell_mask(la, lb, side, side)
         s_k, dec_k = gotoh_cuda.gotoh_forward_codes(ca, cb, la, lb, sub, go, ge)
         s_p, dec_p = dp.gotoh_forward_codes_ref(ca, cb, la, lb, sub, go, ge)
@@ -240,32 +276,14 @@ def check_kernels(dev) -> dict:
         err_t = float((ops_k.int() - ops_pp.int()).abs().max())
         tb_ok = (torch.equal(ops_k, ops_pp) and torch.equal(cnt_k, cnt_pp)
                  and poisoned_traceback_ok(dec_k, live, la, lb, ops_pp, cnt_pp))
-        say(f"kernel-vs-plain side={side} B={B}: forward scores max|diff|={err_f}, live dec "
-            f"bytes ({int(live.sum())}) {'identical' if same_dec else 'DIFFER'}, ops "
+        say(f"kernel-vs-plain side={side} B={batch_of(side)}: forward scores max|diff|={err_f}, "
+            f"live dec bytes ({int(live.sum())}) {'identical' if same_dec else 'DIFFER'}, ops "
             f"{'equal' if fwd_ok else 'DIFFER'}; traceback on the plain and the poisoned "
             f"kernel decisions {'equal' if tb_ok else 'DIFFERS'}")
         if not (fwd_ok and tb_ok):
             raise SystemExit(f"kernel disagrees with its plain version at side {side}")
         stats["gotoh_forward_codes"]["max_abs_err"] = max(stats["gotoh_forward_codes"]["max_abs_err"], err_f)
         stats["gotoh_traceback"]["max_abs_err"] = max(stats["gotoh_traceback"]["max_abs_err"], err_t)
-        if side in TIMED_SIDES:
-            reps_k = 20 if side <= 512 else 5
-            f_k = cuda_ms(lambda: gotoh_cuda.gotoh_forward_codes(ca, cb, la, lb, sub, go, ge), reps_k)
-            f_p = cuda_ms(lambda: dp.gotoh_forward_codes_ref(ca, cb, la, lb, sub, go, ge), 1)
-            t_k = cuda_ms(lambda: gotoh_cuda.gotoh_traceback(dec_p, la, lb), reps_k)
-            t_p = cuda_ms(lambda: dp.gotoh_traceback_ref(dec_p, la, lb), 1)
-            f_b = forward_bound("gotoh_forward_codes", la_h, lb_h)
-            steps = cnt_pp.cpu().numpy()
-            t_b = traceback_bound(steps, side, side)
-            floor = traceback_chain_floor(steps, sm_mhz)
-            say(f"time side={side} B={B}: gotoh_forward_codes kernel {f_k:.4f} ms, plain "
-                f"{f_p:.4f} ms, bound {f_b[0]:.6f} ms ({f_b[1]}), roofline share "
-                f"{f_b[0] / f_k:.4f}; gotoh_traceback kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
-                f"bound {t_b[0]:.6f} ms, roofline share {t_b[0] / t_k:.4f}, chain floor "
-                f"{floor:.4f} ms (longest walk {int(steps.max())} steps x {TB_CYCLES_PER_STEP} "
-                f"cycles at {sm_mhz:.0f} MHz), {t_k / floor:.2f}x the floor")
-            record_time(stats["gotoh_forward_codes"], side, B, f_k, f_p, f_b)
-            record_time(stats["gotoh_traceback"], side, B, t_k, t_p, t_b, chain_floor_ms=floor)
     return stats
 
 
@@ -273,46 +291,24 @@ def check_large_sides(dev) -> dict:
     """Both forward kernels above their shared-memory limits (the device
     slab): scores exact, live decision bytes identical, and the traceback
     kernel on the kernel's decisions equal to the plain traceback on the
-    plain decisions.  Times: the kernel over 3 launches, the plain version
-    and the traceback once each (CUDA events), each beside its bound."""
-    rng = np.random.default_rng(2027)
+    plain decisions."""
     sub = torch.from_numpy(dp.HOXD70.copy()).to(dev)
     go, ge = dp.DEFAULT_GAP_OPEN, dp.DEFAULT_GAP_EXTEND
     lib = _build.library()
-    sm_mhz = sm_clock_mhz()
     out = {}
-    for name, side in LARGE_SIDES.items():
-        lens = (np.array([side - 3, side // 2 + 7], np.int32),
-                np.array([side - 11, 900], np.int32))
-        profiles = name == "gotoh_forward_profiles"
-        slab = lib.gotoh_forward_scratch_bytes(2, side, int(profiles), 0)
+    for name, side, (la_h, lb_h), x, kernel, plain in large_batches(dev):
+        slab = lib.gotoh_forward_scratch_bytes(2, side, int(name == "gotoh_forward_profiles"), 0)
         if slab <= 0:
             raise SystemExit(f"{name} at side {side} fits shared memory: no slab path to check")
-        if profiles:
-            pa, pb, la_h, lb_h = random_profile_batch(rng, 2, side, lens)
-            x = [torch.from_numpy(pa).to(dev).to(torch.float32),
-                 torch.from_numpy(pb).to(dev).to(torch.float32)]
-            kernel = gotoh_cuda.gotoh_forward_profiles
-            plain = dp.gotoh_forward_profiles_ref
-        else:
-            ca, cb, la_h, lb_h = random_batch(rng, 2, side, lens)
-            x = [torch.from_numpy(ca).to(dev), torch.from_numpy(cb).to(dev)]
-            kernel = gotoh_cuda.gotoh_forward_codes
-            plain = dp.gotoh_forward_codes_ref
-        x += [torch.from_numpy(la_h).to(dev), torch.from_numpy(lb_h).to(dev)]
         s_k, dec_k = kernel(*x, sub, go, ge)
         ops_k, cnt_k = gotoh_cuda.gotoh_traceback(dec_k, x[2], x[3])
-        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        t0.record()
         s_p, dec_p = plain(*x, sub, go, ge)
-        t1.record()
         ops_p, cnt_p = dp.gotoh_traceback_ref(dec_p, x[2], x[3])
         torch.cuda.synchronize()
-        plain_ms = t0.elapsed_time(t1)
         live = dp.live_cell_mask(x[2], x[3], side, side)
         err = float((s_k - s_p).abs().max())
         same_dec = bool(torch.equal(dec_k[live], dec_p[live]))
-        del live, dec_p
+        del live, dec_p, dec_k
         tb_ok = torch.equal(ops_k, ops_p) and torch.equal(cnt_k, cnt_p)
         say(f"{name} device slab side={side} B=2 lengths {la_h.tolist()} x {lb_h.tolist()} "
             f"({slab} slab bytes): scores max|diff|={err}, live dec bytes "
@@ -320,23 +316,96 @@ def check_large_sides(dev) -> dict:
             f"{'equal' if tb_ok else 'DIFFER'}")
         if not (err == 0.0 and same_dec and tb_ok):
             raise SystemExit(f"{name} disagrees with its plain version at side {side}")
+        out[name] = {"side": side, "batch": 2, "max_abs_err": err, "slab_bytes": int(slab)}
+        torch.cuda.empty_cache()
+    return out
+
+
+def kernel_checks():
+    """Every kernel against its plain version on the card: check_kernels,
+    check_profile_kernel and check_large_sides.  Runs in a worker process
+    of its own (a second CUDA context on the card) beside the driven paths:
+    both are host-bound, and the plain versions' small launches take
+    minutes.  Nothing is timed here (time_kernels times the same inputs
+    later, alone on the card).  Returns (stats by kernel, device-slab
+    stats)."""
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    _build.library()  # the parent built it: this loads the library
+    stats = check_kernels(dev)
+    stats["gotoh_forward_profiles"] = check_profile_kernel(dev)
+    return stats, check_large_sides(dev)
+
+
+def time_kernels(dev, stats: dict, large: dict) -> None:
+    """Time each kernel and its plain version on the inputs kernel_checks
+    compared (the same seeds), with nothing else on the card: at
+    TIMED_SIDES the forward kernels over 20 launches (5 at sides above
+    512) and the plain versions once, after one warm call each (CUDA
+    events, scripts/gotoh_replay.cuda_ms); the traceback likewise on the
+    plain decisions.  At LARGE_SIDES each forward kernel and the traceback
+    over 3 launches and the plain forward once.  Each time prints beside
+    its bound and fills `stats` and `large` in place."""
+    sub = torch.from_numpy(dp.HOXD70.copy()).to(dev)
+    go, ge = dp.DEFAULT_GAP_OPEN, dp.DEFAULT_GAP_EXTEND
+    sm_mhz = sm_clock_mhz()
+    for side, (_, _, la_h, lb_h), (ca, cb, la, lb) in code_batches(dev):
+        if side not in TIMED_SIDES:
+            continue
+        B, reps_k = batch_of(side), (20 if side <= 512 else 5)
+        _, dec_p = dp.gotoh_forward_codes_ref(ca, cb, la, lb, sub, go, ge)
+        _, cnt_pp = dp.gotoh_traceback_ref(dec_p, la, lb)
+        f_k = cuda_ms(lambda: gotoh_cuda.gotoh_forward_codes(ca, cb, la, lb, sub, go, ge), reps_k)
+        f_p = cuda_ms(lambda: dp.gotoh_forward_codes_ref(ca, cb, la, lb, sub, go, ge), 1)
+        t_k = cuda_ms(lambda: gotoh_cuda.gotoh_traceback(dec_p, la, lb), reps_k)
+        t_p = cuda_ms(lambda: dp.gotoh_traceback_ref(dec_p, la, lb), 1)
+        f_b = forward_bound("gotoh_forward_codes", la_h, lb_h)
+        steps = cnt_pp.cpu().numpy()
+        t_b = traceback_bound(steps, side, side)
+        floor = traceback_chain_floor(steps, sm_mhz)
+        say(f"time side={side} B={B}: gotoh_forward_codes kernel {f_k:.4f} ms, plain "
+            f"{f_p:.4f} ms, bound {f_b[0]:.6f} ms ({f_b[1]}), roofline share "
+            f"{f_b[0] / f_k:.4f}; gotoh_traceback kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
+            f"bound {t_b[0]:.6f} ms, roofline share {t_b[0] / t_k:.4f}, chain floor "
+            f"{floor:.4f} ms (longest walk {int(steps.max())} steps x {TB_CYCLES_PER_STEP} "
+            f"cycles at {sm_mhz:.0f} MHz), {t_k / floor:.2f}x the floor")
+        record_time(stats["gotoh_forward_codes"], side, B, f_k, f_p, f_b)
+        record_time(stats["gotoh_traceback"], side, B, t_k, t_p, t_b, chain_floor_ms=floor)
+        del dec_p
+    for side, (_, _, la_h, lb_h), (pa, pb, la, lb) in profile_batches(dev):
+        if side not in TIMED_SIDES:
+            continue
+        B, reps_k = batch_of(side), (20 if side <= 512 else 5)
+        f_k = cuda_ms(lambda: gotoh_cuda.gotoh_forward_profiles(pa, pb, la, lb, sub, go, ge), reps_k)
+        f_p = cuda_ms(lambda: dp.gotoh_forward_profiles_ref(pa, pb, la, lb, sub, go, ge), 1)
+        bound = forward_bound("gotoh_forward_profiles", la_h, lb_h)
+        say(f"time side={side} B={B}: gotoh_forward_profiles kernel {f_k:.4f} ms, plain "
+            f"{f_p:.4f} ms, bound {bound[0]:.6f} ms ({bound[1]}), roofline share "
+            f"{bound[0] / f_k:.4f}")
+        record_time(stats["gotoh_forward_profiles"], side, B, f_k, f_p, bound)
+    for name, side, (la_h, lb_h), x, kernel, plain in large_batches(dev):
+        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0.record()
+        plain(*x, sub, go, ge)
+        t1.record()
+        torch.cuda.synchronize()
+        plain_ms = t0.elapsed_time(t1)
         ms = cuda_ms(lambda: kernel(*x, sub, go, ge), 3)
         bound = forward_bound(name, la_h, lb_h)
-        steps = cnt_k.cpu().numpy()
+        _, dec_k = kernel(*x, sub, go, ge)
         tb_ms = cuda_ms(lambda: gotoh_cuda.gotoh_traceback(dec_k, x[2], x[3]), 3)
+        steps = gotoh_cuda.gotoh_traceback(dec_k, x[2], x[3])[1].cpu().numpy()
         tb_bound = traceback_bound(steps, side, side)
         floor = traceback_chain_floor(steps, sm_mhz)
         say(f"time device slab side={side} B=2: {name} kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, bound {bound[0]:.6f} ms ({bound[1]}), roofline share "
             f"{bound[0] / ms:.4f}; gotoh_traceback {tb_ms:.4f} ms, bound {tb_bound[0]:.6f} ms, "
             f"chain floor {floor:.4f} ms ({card_line()})")
-        out[name] = {"side": side, "batch": 2, "max_abs_err": err, "ms": ms,
-                     "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1],
-                     "slab_bytes": int(slab), "traceback_ms": tb_ms,
-                     "traceback_bound_ms": tb_bound[0], "traceback_chain_floor_ms": floor}
+        large[name].update(ms=ms, plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1],
+                           traceback_ms=tb_ms, traceback_bound_ms=tb_bound[0],
+                           traceback_chain_floor_ms=floor)
         del dec_k
         torch.cuda.empty_cache()
-    return out
 
 
 def mainpath_times(dev, shapes, config: str) -> dict:
@@ -683,6 +752,7 @@ def draft_run(ref, drafts, golden: dict, label: str, dev, mesh=None) -> dict:
         reordered, logs = map(list, zip(*sort_contigs_sharded(ref, drafts, mesh, device=dev)))
     torch.cuda.synchronize()
     front = time.perf_counter() - t0
+    front_peak = torch.cuda.max_memory_allocated()
     timing.GLOBAL.reset()
     res = ProgressiveMauve(ProgressiveOptions(use_sml_cache=False, device=str(dev),
                                               mesh=mesh)).align([ref] + reordered)
@@ -701,15 +771,15 @@ def draft_run(ref, drafts, golden: dict, label: str, dev, mesh=None) -> dict:
         " ".join(f"{n}{'+' if s > 0 else '-' if s < 0 else '?'}" for n, s in log)
         for log in got["placement_logs"]))
     say(f"{label} per-phase report (progressive):\n" + timing.GLOBAL.report().rstrip())
-    say(f"{label} peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
-    for k in (*digest.DRAFT_KEYS, *DIGEST_KEYS):
-        if got[k] != golden[k]:
-            raise SystemExit(f"{label}: {k} = {got[k]!r}, golden {golden[k]!r}")
+    peak = torch.cuda.max_memory_allocated()
+    say(f"{label} peak device memory {peak / 2**20:.1f} MiB (front half {front_peak / 2**20:.1f} MiB)")
+    hold(label, got, golden, (*digest.DRAFT_KEYS, *DIGEST_KEYS))
     for k in KERNELS:
         if launches[k] <= 0:
             raise SystemExit(f"{label}: kernel {k} was never launched")
     return {"seconds": secs, "front_half_seconds": front, "launches": launches,
-            "shapes": shapes}
+            "shapes": shapes, "peak_bytes": peak, "front_half_peak_bytes": front_peak,
+            "dp_cells": c.get("dp_cells", 0)}
 
 
 def config5(dev, ref, drafts) -> dict:
@@ -749,6 +819,52 @@ def config5_mesh(dev, ref, drafts, mesh) -> dict:
     """Config 5's draft workflow once under the mesh, against its golden."""
     golden = load_golden("config5_golden.json", [ref] + drafts)
     return draft_run(ref, drafts, golden, "config5 mesh", dev, mesh)
+
+
+def config5_bacterial(dev, ref, drafts) -> dict:
+    """The draft workflow at bacterial length, uncut: a 4.6 Mbp reference
+    and 20 drafts of 184 contigs (utils/digest.DRAFT_SHAPES["5bacterial"]), once on
+    one device, held to every field of config5_bacterial_golden.json; then
+    its front half again through parallel.sort_contigs_sharded under
+    Mesh((cuda:0,) * 4) (BASELINE's pod-sharded half at its real size), held
+    to the golden's placement logs and reordered drafts.  Prints the wall,
+    both front halves, the progressive split, launches, dp_cells, the peak
+    device memory of each half and the process's peak resident set."""
+    genomes = [ref] + drafts
+    golden = load_golden("config5_bacterial_golden.json", genomes)
+    say(f"config5_bacterial genomes match the golden sha256 ({sum(len(g) for g in genomes):,} "
+        f"bases, {sum(len(d.contigs) for d in drafts)} draft contigs)")
+    r = draft_run(ref, drafts, golden, "config5_bacterial", dev)
+    say(f"config5_bacterial: wall {r['seconds']:.3f} s (front half {r['front_half_seconds']:.3f} s), "
+        f"launches {r['launches']}, dp_cells {r['dp_cells']:.0f}, peak device memory "
+        f"{r['peak_bytes'] / 2**30:.2f} GiB (front half {r['front_half_peak_bytes'] / 2**30:.2f} GiB), "
+        f"peak resident set of this process so far {peak_rss_gib():.2f} GiB; "
+        f"JAX package on the CPU {golden['jax_cpu_seconds']:.1f} s (front half "
+        f"{golden['jax_cpu_front_seconds']:.1f} s) ({card_line()})")
+
+    # the pod-sharded front half: every pair's mer list padded to the
+    # longest pair's, int64 key + int32 sequence + int32 position per entry
+    mesh = Mesh((dev,) * MESH_SHARDS)
+    longest = max(len(ref) + len(d) for d in drafts)
+    pairs = -(-len(drafts) // MESH_SHARDS) * MESH_SHARDS
+    say(f"config5_bacterial mesh front half: {pairs} pair rows of up to {longest:,} entries, "
+        f"{pairs * longest * 16 / 2**30:.2f} GiB of padded pair tables")
+    timing.GLOBAL.reset()
+    gotoh_cuda.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reordered, logs = map(list, zip(*sort_contigs_sharded(ref, drafts, mesh, device=dev)))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    got = digest.front_half_digest(reordered, logs)
+    say(f"config5_bacterial mesh front half: {secs:.3f} s under the {MESH_SHARDS}-shard mesh, "
+        f"{r['front_half_seconds']:.3f} s sequential on one device; {got['contigs_placed']} "
+        f"contigs placed, launches {dict(gotoh_cuda.LAUNCHES)}, peak device memory "
+        f"{peak / 2**30:.2f} GiB{sharded_note()} ({card_line()})")
+    hold("config5_bacterial mesh front half", got, golden, digest.FRONT_HALF_KEYS)
+    return {**r, "mesh_front_half_seconds": secs, "mesh_front_half_peak_bytes": peak}
 
 
 def free_port() -> int:
@@ -806,7 +922,9 @@ def build_inputs(kind: str):
     elif kind == "headline":
         out = simulate.enterobacteria_like(HEADLINE_SIZE, 9, 0.08)
     elif kind == "config5_wide":
-        out = simulate.draft_genomes(500_000, 21, 20)
+        out = simulate.draft_genomes(*digest.DRAFT_SHAPES["5wide"])
+    elif kind == "config5_bacterial":
+        out = simulate.draft_genomes(*digest.DRAFT_SHAPES["5bacterial"])
     else:
         raise ValueError(kind)
     return time.perf_counter() - t0, out
@@ -832,15 +950,16 @@ def main() -> int:
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 1
     t_start = time.perf_counter()
-    # the three largest host genome builds (per-base Python loops) run in
-    # worker processes while the kernels build and are checked and the
-    # earlier phases run; spawn, as this process is about to use CUDA
-    kinds = ("tree", "config5_wide", "headline")
+    # the four largest host genome builds (per-base Python loops; config 5
+    # bacterial's about 2 minutes) run in worker processes while the kernels
+    # build and the earlier phases run, and one more worker runs the kernel
+    # checks; spawn, as this process is about to use CUDA
+    kinds = ("config5_bacterial", "headline", "config5_wide", "tree")
     with concurrent.futures.ProcessPoolExecutor(
-        max_workers=len(kinds), mp_context=multiprocessing.get_context("spawn")
+        max_workers=len(kinds) + 1, mp_context=multiprocessing.get_context("spawn")
     ) as pool:
         built = {kind: pool.submit(build_inputs, kind) for kind in kinds}
-        kernels, mesh_summary = run_phases(built)
+        kernels, mesh_summary = run_phases(pool, built)
     say(f"mesh summary: {json.dumps(mesh_summary)}")
     say(f"chip_smoke total: {time.perf_counter() - t_start:.1f} s")
     say(card_line())
@@ -853,9 +972,9 @@ def main() -> int:
     return 0
 
 
-def run_phases(built):
-    """Every phase in order; returns the kernels line's list and a summary
-    of the mesh phases."""
+def run_phases(pool, built):
+    """Every phase in order, the kernel checks on `pool` beside them;
+    returns the kernels line's list and a summary of the mesh phases."""
     say(card_line())
     say(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}")
@@ -870,9 +989,7 @@ def run_phases(built):
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             say(f"  ptxas: {line.strip()}")
 
-    stats = check_kernels(dev)
-    stats["gotoh_forward_profiles"] = check_profile_kernel(dev)
-    large = check_large_sides(dev)
+    checks = pool.submit(kernel_checks)
     c1_genomes, c1_golden = config1_inputs()
     runs = config1(dev, c1_genomes, c1_golden)
     runs2 = config2(dev)
@@ -884,7 +1001,7 @@ def run_phases(built):
     runs4 = config4(dev)
     runs4_big = config4_big(dev)
     t0 = time.perf_counter()
-    c5_ref, c5_drafts = simulate.draft_genomes(150_000, 8, 6)
+    c5_ref, c5_drafts = simulate.draft_genomes(*digest.DRAFT_SHAPES["5"])
     say(f"config5 genomes built in {time.perf_counter() - t0:.1f} s (host)")
     runs5 = config5(dev, c5_ref, c5_drafts)
     w_ref, w_drafts = take_built("config5_wide", built["config5_wide"])
@@ -916,12 +1033,22 @@ def run_phases(built):
     h_genomes, h_truths = take_built("headline", built["headline"])
     runs_headline = headline(dev, h_genomes, h_truths)
     del h_genomes, h_truths
+    # last, the largest
+    b_ref, b_drafts = take_built("config5_bacterial", built["config5_bacterial"])
+    runs5_bact = config5_bacterial(dev, b_ref, b_drafts)
+    del b_ref, b_drafts
 
+    t0 = time.perf_counter()
+    stats, large = checks.result()
+    say(f"kernel checks done in their worker process; waited {time.perf_counter() - t0:.1f} s "
+        "for them")
+    time_kernels(dev, stats, large)
     mainpath2 = mainpath_times(dev, runs2["cold"]["shapes"], "2")
     mainpath = mainpath_times(dev, runs3["cold"]["shapes"], "3")
     mainpath4 = mainpath_times(dev, runs4["cold"]["shapes"], "4")
     mainpath5 = mainpath_times(dev, runs5["cold"]["shapes"], "5")
     mainpath_h = mainpath_times(dev, runs_headline["shapes"], "headline")
+    mainpath_5b = mainpath_times(dev, runs5_bact["shapes"], "5 bacterial")
 
     kernels = []
     for name, replaces in KERNELS.items():
@@ -947,6 +1074,7 @@ def run_phases(built):
                 "headline": runs_headline["launches"][name],
                 "config5": runs5["cold"]["launches"][name],
                 "config5_wide": runs5_wide["launches"][name],
+                "config5_bacterial": runs5_bact["launches"][name],
                 **{k: r["launches"][name] for k, r in mesh_runs.items()},
             },
             "max_abs_err": s["max_abs_err"],
@@ -964,8 +1092,8 @@ def run_phases(built):
             "mainpath_ms": m["ms"],
             "mainpath_bound_ms": m["bound_ms"],
             "mainpath_launches": m["launches"],
-            # config 2's, 4's, 5's and the headline's cold-run launch lists
-            # replayed the same way
+            # config 2's, 4's, 5's, the headline's and config 5 at
+            # bacterial length's cold-run launch lists replayed the same way
             "mainpath_config2_ms": mainpath2[name]["ms"],
             "mainpath_config2_bound_ms": mainpath2[name]["bound_ms"],
             "mainpath_config2_launches": mainpath2[name]["launches"],
@@ -978,6 +1106,9 @@ def run_phases(built):
             "mainpath_headline_ms": mainpath_h[name]["ms"],
             "mainpath_headline_bound_ms": mainpath_h[name]["bound_ms"],
             "mainpath_headline_launches": mainpath_h[name]["launches"],
+            "mainpath_config5_bacterial_ms": mainpath_5b[name]["ms"],
+            "mainpath_config5_bacterial_bound_ms": mainpath_5b[name]["bound_ms"],
+            "mainpath_config5_bacterial_launches": mainpath_5b[name]["launches"],
         })
         if name in large:
             # the largest side checked: above shared memory, the device slab
@@ -990,12 +1121,16 @@ def run_phases(built):
                                mainpath_after_forward_ms=m["after_forward_ms"],
                                mainpath_config4_chain_floor_ms=mainpath4[name]["chain_floor_ms"],
                                mainpath_config5_chain_floor_ms=mainpath5[name]["chain_floor_ms"],
-                               mainpath_headline_chain_floor_ms=mainpath_h[name]["chain_floor_ms"])
+                               mainpath_headline_chain_floor_ms=mainpath_h[name]["chain_floor_ms"],
+                               mainpath_config5_bacterial_chain_floor_ms=(
+                                   mainpath_5b[name]["chain_floor_ms"]))
     return kernels, {
         "shards": MESH_SHARDS,
         "seconds": {k: r["seconds"] for k, r in mesh_runs.items()},
         "single_device_seconds": {k: single[k]["seconds"] for k in mesh_runs},
         "process_group": pg,
+        "config5_bacterial_front_half_seconds": runs5_bact["mesh_front_half_seconds"],
+        "config5_bacterial_front_half_single_device_seconds": runs5_bact["front_half_seconds"],
     }
 
 

@@ -26,8 +26,8 @@ launch's batch over the mesh's shards.  The S-state combine is a matrix
 product whose sum order may differ from XLA's einsum by an ulp; the 2-state
 lanes keep the JAX package's bits.  The JAX package's bit packing of the
 thresholded posteriors is a transfer-size measure and is dropped: the bools
-stay on the device until one transfer.  viterbi, which nothing calls, is
-not ported.
+stay on the device until one transfer.  viterbi (the most-likely state
+path, an XLA scan in the JAX package) is a loop over the steps here.
 """
 
 from __future__ import annotations
@@ -339,3 +339,30 @@ def bucketed_decode(
             for bi, idx in enumerate(chunk):
                 out[idx] = int(res[bi]) if mode == "prefix0" else res[bi, : int(lengths[bi])]
     return out
+
+
+def viterbi(log_emit: torch.Tensor, log_trans, log_init, lengths) -> torch.Tensor:
+    """Most-likely state path [B, T] (int32) from emission log-probs
+    [B, T, S], log_trans [S, S] (row = from) and log_init [S]; steps at or
+    beyond `lengths` are padding (emission log-prob 0, so they follow the
+    transitions from the last live state).
+
+    The JAX package's scan is a loop over the steps here, then the
+    backtrace.  torch.argmax, like jnp.argmax, takes the first maximum, so
+    ties break alike; dtypes promote as in the JAX package (f32 emissions
+    with f64 tables decode in f64)."""
+    B, T, S = log_emit.shape
+    pad_mask = torch.arange(T, device=log_emit.device)[None, :] < lengths[:, None]
+    le = torch.where(pad_mask[:, :, None], log_emit, 0.0)
+    delta = log_init[None] + le[:, 0]
+    backs = []
+    for t in range(1, T):
+        scores = delta[:, :, None] + log_trans[None]  # [B, S_from, S_to]
+        backs.append(torch.argmax(scores, dim=1))
+        delta = scores.amax(dim=1) + le[:, t]
+    state = torch.argmax(delta, dim=1)
+    path = [state]
+    for back in reversed(backs):
+        state = torch.gather(back, 1, state[:, None])[:, 0]
+        path.append(state)
+    return torch.stack(path[::-1], dim=1).to(torch.int32)

@@ -168,8 +168,15 @@ def mauve_aligner_digest(directory: str) -> Dict:
 
 
 # BASELINE config 5, the draft workflow (scripts/bench_configs.py config5):
-# the fields a golden file records beyond progressive_digest's
-DRAFT_KEYS = ("placement_logs", "contigs_placed", "reordered_sha256", "bases_accounted")
+# the fields a golden file records beyond progressive_digest's, the first
+# three of them the front half's
+FRONT_HALF_KEYS = ("placement_logs", "contigs_placed", "reordered_sha256")
+DRAFT_KEYS = (*FRONT_HALF_KEYS, "bases_accounted")
+# the draft workflows' utils/simulate.draft_genomes(n, k, n_contigs), seed
+# 37: config 5 (scripts/bench_configs.py config5), config 5 at 20 drafts and
+# config 5 at bacterial length, one contig per 25 kbp in each
+DRAFT_SHAPES = {"5": (150_000, 8, 6), "5wide": (500_000, 21, 20),
+                "5bacterial": (4_600_000, 21, 184)}
 
 
 def bases_accounted(ivl) -> bool:
@@ -202,15 +209,23 @@ def sort_drafts(ref, drafts, aligner_mod, manipulate_mod, **options):
     return reordered, logs
 
 
-def draft_digest(reordered, logs, res, branch: str, bbcols_name: str) -> Dict:
-    """progressive_digest of the workflow's ProgressiveMauve result, with
-    each draft's placement log ([contig name, strand], strand 0 for an
-    unplaced contig), the count of placed contigs, the sha256 of every
-    reordered draft and whether the alignment accounts for every base."""
+def front_half_digest(reordered, logs) -> Dict:
+    """The front half's fields: each draft's placement log ([contig name,
+    strand], strand 0 for an unplaced contig), the count of placed contigs
+    and the sha256 of every reordered draft."""
     return {
         "placement_logs": [[[name, int(strand)] for name, strand in log] for log in logs],
         "contigs_placed": sum(1 for log in logs for _, strand in log if strand != 0),
         "reordered_sha256": genome_sha256(reordered),
+    }
+
+
+def draft_digest(reordered, logs, res, branch: str, bbcols_name: str) -> Dict:
+    """progressive_digest of the workflow's ProgressiveMauve result, with
+    the front half's fields (front_half_digest) and whether the alignment
+    accounts for every base."""
+    return {
+        **front_half_digest(reordered, logs),
         "bases_accounted": bases_accounted(res.interval_list),
         **progressive_digest(res, branch, bbcols_name),
     }

@@ -37,35 +37,60 @@ def evolve(
 
     The truth IntervalList covers the two genomes [ancestor, derived] with a
     single collinear interval.
+
+    The JAX package's per-base walk, with the same draws in the same order
+    (so the same genomes from the same generator): per ancestor base one
+    uniform picks deletion, insertion or a kept base, and a kept base draws
+    again for a substitution.  The walk records only the events; the
+    descendant and the alignment rows are assembled from them afterwards,
+    in slices, instead of one small array per base.
     """
     anc = ancestor.seq
+    n = len(anc)
+    rand = rng.random
+    indel_rate = del_rate + ins_rate
+    subs = []    # (position, offset draw) of each substituted base
+    events = []  # (position, length, inserted bases or None for a deletion)
+    i = 0
+    while i < n:
+        r = rand()
+        if r < del_rate:
+            k = min(1 + rng.poisson(mean_indel), n - i)
+            events.append((i, k, None))
+            i += k
+        elif r < indel_rate:
+            k = 1 + rng.poisson(mean_indel)
+            events.append((i, k, _BASES[rng.integers(0, 4, size=k)]))
+        else:
+            if rand() < sub_rate:
+                subs.append((i, rng.integers(1, 4)))
+            i += 1
+    seq = anc.copy()
+    if subs:
+        pos, off = (np.array(x, np.int64) for x in zip(*subs))
+        seq[pos] = _BASES[(np.searchsorted(_BASES, anc[pos]) + off) % 4]
     out: List[np.ndarray] = []
     row_a: List[np.ndarray] = []
     row_d: List[np.ndarray] = []
-    i = 0
-    n = len(anc)
-    while i < n:
-        r = rng.random()
-        if r < del_rate:
-            k = 1 + rng.poisson(mean_indel)
-            k = min(k, n - i)
-            row_a.append(np.ones(k, bool))
-            row_d.append(np.zeros(k, bool))
-            i += k
-        elif r < del_rate + ins_rate:
-            k = 1 + rng.poisson(mean_indel)
-            ins = _BASES[rng.integers(0, 4, size=k)]
-            out.append(ins)
-            row_a.append(np.zeros(k, bool))
-            row_d.append(np.ones(k, bool))
+
+    def block(bases, k, in_anc, in_der):
+        if bases is not None:
+            out.append(bases)
+        row_a.append(np.full(k, in_anc))
+        row_d.append(np.full(k, in_der))
+
+    cur = 0  # first ancestor base not yet placed
+    for pos, k, ins in events:
+        if pos > cur:
+            block(seq[cur:pos], pos - cur, True, True)
+        if ins is None:
+            block(None, k, True, False)
+            cur = pos + k
         else:
-            base = anc[i]
-            if rng.random() < sub_rate:
-                base = _BASES[(np.searchsorted(_BASES, base) + rng.integers(1, 4)) % 4]
-            out.append(np.array([base], np.uint8))
-            row_a.append(np.ones(1, bool))
-            row_d.append(np.ones(1, bool))
-            i += 1
+            block(ins, k, False, True)
+            cur = pos
+    if n > cur:
+        block(seq[cur:], n - cur, True, True)
     derived = Genome(np.concatenate(out) if out else np.zeros(0, np.uint8), name=name)
     aln = np.stack([np.concatenate(row_a), np.concatenate(row_d)])
     iv = Interval(np.array([1, 1], np.int64), aln)

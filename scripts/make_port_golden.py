@@ -49,19 +49,27 @@ mauvealigner_tpu_torch/data/, which chip_smoke.py holds the port to:
   headline  headline_golden.json: the tree fields at the system's headline
         size, 9 x 4.6 Mbp (enterobacteria_like(4_600_000, 9, 0.08), the
         genomes of scripts/bench_enterobacteria.py), plus the anchor count
-        and the JAX run's CPU seconds (about 15 minutes on 8 CPU cores:
-        a 6.5 minute genome build, then the run);
+        and the JAX run's CPU seconds (about 9 minutes on 8 CPU cores:
+        a 1.5 minute genome build, then the run);
   4chrom  config4_chrom_golden.json: the 4big fields on a whole bacterial
         chromosome, every spacer 20x (planted_repeats(20), 4,606,000 bp;
-        about 2 minutes).
+        about 2 minutes);
+  5bacterial  config5_bacterial_golden.json: the 5wide fields at bacterial
+        length, uncut: a 4.6 Mbp reference and 20 drafts of 184 contigs
+        (utils/digest.DRAFT_SHAPES); about 25 minutes on 8 CPU
+        cores (a 3 minute genome build, then 22 minutes of the run), peak
+        resident set 14.3 GiB.
 
 The progressive and repeatoire goldens record the JAX run's wall seconds
-on the CPU as "jax_cpu_seconds".
+on the CPU as "jax_cpu_seconds"; the draft goldens also the genome
+build's seconds, the front half's ("jax_cpu_front_seconds") and the
+process's peak resident set ("peak_rss_gib"), and the whole run's
+seconds cover both halves.
 
 Usage:  JAX_PLATFORMS=cpu python scripts/make_port_golden.py [1] [2] [3] [tree] [4] [4big]
-            [5] [5wide] [headline] [4chrom]
-        (no argument: all ten; headline and 4chrom are best run in the
-        background with nohup and a log)
+            [5] [5wide] [headline] [4chrom] [5bacterial]
+        (no argument: all eleven; headline, 4chrom and 5bacterial are best
+        run in the background with nohup and a log)
 """
 
 import argparse
@@ -70,6 +78,7 @@ import hashlib
 import io
 import json
 import os
+import resource
 import sys
 import tempfile
 import time
@@ -285,16 +294,20 @@ def _jax_genome(g):
                   name=g.name)
 
 
-def _draft_workflow(name: str, label: str, n: int, k: int, n_contigs: int,
-                    with_cli: bool) -> None:
+def _draft_workflow(name: str, label: str, shape: str, with_cli: bool) -> None:
+    """One draft workflow's golden on digest.DRAFT_SHAPES[shape]'s genomes;
+    `{call}` in `label` becomes that draft_genomes call."""
     from mauvealigner_tpu.models import aligner as jax_aligner
     from mauvealigner_tpu.tools import manipulate
     from mauvealigner_tpu.tools.cli import main as jax_cli
 
+    n, k, n_contigs = digest.DRAFT_SHAPES[shape]
+    label = label.format(call=f"utils/simulate.draft_genomes({n:_}, {k}, {n_contigs})")
     t0 = time.perf_counter()
     pref, pdrafts = port_simulate.draft_genomes(n, k, n_contigs)
     ref, drafts = _jax_genome(pref), [_jax_genome(d) for d in pdrafts]
-    print(f"{label}: genomes built in {time.perf_counter() - t0:.1f} s", file=sys.stderr)
+    build = time.perf_counter() - t0
+    print(f"{label}: genomes built in {build:.1f} s", file=sys.stderr)
     t0 = time.perf_counter()
     reordered, logs = digest.sort_drafts(ref, drafts, jax_aligner, manipulate)
     front = time.perf_counter() - t0
@@ -314,6 +327,10 @@ def _draft_workflow(name: str, label: str, n: int, k: int, n_contigs: int,
     if with_cli:
         with tempfile.TemporaryDirectory() as d:
             golden["cli"] = digest.draft_cli_digest(jax_cli, pref, pdrafts[0], d)
+    golden["genome_build_seconds"] = build
+    golden["jax_cpu_front_seconds"] = front
+    golden["jax_cpu_seconds"] = seconds
+    golden["peak_rss_gib"] = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
     _write(name, golden)
     print(f"{label}: reference run took {seconds:.1f} s on the CPU (front half "
           f"{front:.1f} s)", file=sys.stderr)
@@ -323,26 +340,33 @@ def config5() -> None:
     _draft_workflow(
         "config5_golden.json",
         "BASELINE config 5 (scripts/bench_configs.py config5): seed 37, "
-        "utils/simulate.draft_genomes(150_000, 8, 6); per draft MauveAligner("
+        "{call}; per draft MauveAligner("
         "gapped=False, recursive=False, use_sml_cache=False) + sortContigs, then "
         "ProgressiveOptions(use_sml_cache=False) of ref + reordered drafts",
-        150_000, 8, 6, with_cli=True)
+        "5", with_cli=True)
 
 
 def config5_wide() -> None:
     _draft_workflow(
         "config5_wide_golden.json",
-        "config 5 at BASELINE's 20+ drafts: seed 37, utils/simulate.draft_genomes("
-        "500_000, 21, 20), the same workflow (a reference and 20 drafts of 20 "
+        "config 5 at BASELINE's 20+ drafts: seed 37, {call}, the same workflow (a reference and 20 drafts of 20 "
         "contigs, one per 25 kbp as in config 5)",
-        500_000, 21, 20, with_cli=False)
+        "5wide", with_cli=False)
+
+
+def config5_bacterial() -> None:
+    _draft_workflow(
+        "config5_bacterial_golden.json",
+        "config 5 at bacterial length: seed 37, {call}, the same workflow (a 4.6 Mbp reference and 20 drafts "
+        "of 184 contigs, one per 25 kbp as in config 5), uncut",
+        "5bacterial", with_cli=False)
 
 
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     run = {"1": config1, "2": config2, "3": config3, "tree": tree_branch, "4": config4,
            "4big": config4_big, "5": config5, "5wide": config5_wide, "headline": headline,
-           "4chrom": config4_chrom}
+           "4chrom": config4_chrom, "5bacterial": config5_bacterial}
     p.add_argument("configs", nargs="*", choices=list(run), default=[])
     a = p.parse_args()
     for c in a.configs or list(run):

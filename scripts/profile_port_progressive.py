@@ -5,7 +5,9 @@ enterobacteria-like genomes of the tree-progressive branch (--size sets
 their length: 4600000 gives BASELINE.md's headline, the genomes of
 scripts/bench_enterobacteria.py), or config 5's
 draft workflow (a 150 kbp reference and 7 drafts of 6 contigs; 5wide: a
-500 kbp reference and 20 drafts of 20 contigs), runs it on cuda:0 once to
+500 kbp reference and 20 drafts of 20 contigs; 5bacterial: a 4.6 Mbp
+reference and 20 drafts of 184 contigs, uncut, whose genomes take about
+two minutes to build), runs it on cuda:0 once to
 warm up (kernel build, allocator), then once under torch.profiler (CUDA
 activity): ProgressiveMauve, for config 5 after the per-draft anchor search
 and sortContigs (utils/digest.sort_drafts).  Prints the per-phase host
@@ -13,8 +15,8 @@ report (of the progressive run), the kernels by device time, one line per
 Gotoh kernel (launches and device ms) and the device busy and idle shares
 of the profiled run, with the card's name and power limit.
 
-Usage:  python scripts/profile_port_progressive.py [3|tree|5|5wide] [--size N] [--trace PATH]
-            [--root DIR]
+Usage:  python scripts/profile_port_progressive.py [3|tree|5|5wide|5bacterial] [--size N]
+            [--trace PATH] [--root DIR]
 
 `--root DIR` imports the port's package from DIR (another checkout, for
 example the parent commit unpacked into a git-ignored directory), so two
@@ -34,6 +36,8 @@ from torch.profiler import ProfilerActivity, profile
 
 GOTOH_KERNELS = ("gotoh_forward_codes_kernel", "gotoh_forward_profiles_kernel",
                  "gotoh_traceback_kernel")
+# the draft workflows (utils/digest.DRAFT_SHAPES)
+DRAFTS = ("5", "5wide", "5bacterial")
 
 
 def genomes_of(config: str, size: int):
@@ -56,9 +60,8 @@ def workload(config: str, size: int):
     from mauvealigner_tpu_torch.tools import manipulate
     from mauvealigner_tpu_torch.utils import digest, simulate, timing
 
-    if config in ("5", "5wide"):
-        ref, drafts = (simulate.draft_genomes(150_000, 8, 6) if config == "5"
-                       else simulate.draft_genomes(500_000, 21, 20))
+    if config in DRAFTS:
+        ref, drafts = simulate.draft_genomes(*digest.DRAFT_SHAPES[config])
         pm = ProgressiveMauve(ProgressiveOptions(use_sml_cache=False, device="cuda"))
 
         def run():
@@ -73,7 +76,7 @@ def workload(config: str, size: int):
 
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("config", nargs="?", default="3", choices=["3", "tree", "5", "5wide"])
+    p.add_argument("config", nargs="?", default="3", choices=["3", "tree", *DRAFTS])
     p.add_argument("--size", type=int, default=1_000_000,
                    help="genome length of the tree configuration")
     p.add_argument("--trace", default="")

@@ -195,3 +195,33 @@ def test_detect_backbone_matches_jax(rng, device_symbols):
                              device_symbols=device_symbols, device="cpu")
     key = lambda s: (s.interval_index, s.col_start, s.col_end, list(s.seqs))  # noqa: E731
     assert len(ref) > 0 and [key(s) for s in ref] == [key(s) for s in got]
+
+
+def _viterbi_inputs(rng, B, T, S, tied):
+    if tied:
+        # integer log-probs on a coarse grid: many equal path scores, so
+        # both packages must take the first maximum at every argmax
+        le = rng.integers(-2, 1, (B, T, S)).astype(np.float32)
+        lt = np.full((S, S), -1.0)
+        li = np.zeros(S)
+    else:
+        le = np.log(rng.dirichlet(np.ones(S), (B, T))).astype(np.float32)
+        lt = np.log(rng.dirichlet(np.ones(S) * 2, S) * 0.2 + np.eye(S) * 0.8)
+        li = np.log(np.full(S, 1.0 / S))
+    lens = rng.integers(1, T + 1, B)
+    lens[0] = T
+    return le, lt, li, lens
+
+
+@pytest.mark.parametrize("S", [2, 3])
+@pytest.mark.parametrize("tied", [False, True])
+def test_viterbi_matches_jax(rng, S, tied):
+    """The most-likely path equals the JAX package's viterbi exactly (int32,
+    padding steps included), ragged lengths, with and without ties."""
+    le, lt, li, lens = _viterbi_inputs(rng, 6, 37, S, tied)
+    ref = np.asarray(jax_hmm.viterbi(jnp.asarray(le), jnp.asarray(lt), jnp.asarray(li),
+                                     jnp.asarray(lens)))
+    got = hmm.viterbi(*(torch.from_numpy(x) for x in (le, lt, li, lens)))
+    assert got.dtype == torch.int32 and ref.dtype == np.int32
+    assert np.array_equal(got.numpy(), ref)
+    assert len(np.unique(ref)) > 1
