@@ -5,17 +5,17 @@ device slab: profiles at side 8192, codes at 16384), and drives the port's
 paths on the GPU: config 1 (two 1 Mbp genomes, bench.py) through
 MauveAligner, BASELINE config 2 (three 500 kbp genomes with an inversion,
 scripts/bench_configs.py) through the mauveAligner command line with
-islands and backbone, cold and warm, BASELINE config 3 (9 x 250 kbp,
+islands and backbone, BASELINE config 3 (9 x 250 kbp,
 scripts/bench_configs.py) through ProgressiveMauve (the extant branch of
 its gate), 9 x 1 Mbp enterobacteria-like genomes through ProgressiveMauve
 (the tree-progressive branch), BASELINE config 4 (the 236 kbp
 planted-family genome, scripts/bench_configs.py config4) through
-Repeatoire cold and warm, the same generator with every spacer 4x as
+Repeatoire, the same generator with every spacer 4x as
 long (926 kbp, bacterial scale) through Repeatoire once, BASELINE config 5
 (the draft workflow of scripts/bench_configs.py config5: a 150 kbp
 reference and 7 drafts of 6 shuffled, partly inverted contigs, each draft's
 anchors through MauveAligner and its contigs through sortContigs, then
-ProgressiveMauve of the reference and the reordered drafts) cold and warm,
+ProgressiveMauve of the reference and the reordered drafts),
 then sortContigs and uniqueMerCount through the command line on its
 reference and first draft, and the same workflow at BASELINE's 20+ drafts
 (a 500 kbp reference and 20 drafts of 20 contigs) once.  Then the mesh
@@ -34,12 +34,20 @@ whose launch counts must equal the serial run's.  Last, config 5 at
 bacterial length, uncut: the draft workflow on a 4.6 Mbp reference and 20
 drafts of 184 contigs, then its front half again through
 sort_contigs_sharded under Mesh((cuda:0,) * 4) (BASELINE config 5's
-pod-sharded half at its real size).  Each run is held to the
+pod-sharded half at its real size).  Then BASELINE configs 1, 2 and 3 at
+E. coli length, uncut, once each (utils/digest.BACTERIAL_RECIPES): config 1
+on two 4.6 Mbp genomes through MauveAligner, config 2 on three through the
+mauveAligner command line with islands and backbone, and config 3 on 9 x
+4.6 Mbp through ProgressiveMauve's extant branch (tree_progressive=False,
+the command line's --tree-progressive=0), with the default gate's sketched
+reading of the same genomes.  Each run is held to the
 JAX package's outputs recorded in mauvealigner_tpu_torch/data/*_golden.json
 (mesh output is bit-identical to single-device output by design, so the
-mesh runs use the same files).  The tree branch's, config 5 wide's, the
-headline's and config 5 at bacterial length's genomes build in worker
-processes while the earlier phases run.
+mesh runs use the same files).  The tree branch's, config 5 wide's,
+config 5 at bacterial length's and the three E. coli length runs' genomes
+build in worker processes while the earlier phases run; the headline
+(genomes and run) runs in a worker process of its own beside config 5 at
+bacterial length and the E. coli length runs.  Every path runs once.
 
 Usage (from the repository root, one NVIDIA GPU):  python3 chip_smoke.py
 
@@ -52,8 +60,8 @@ a worker process beside the driven paths; the kernels and their plain
 versions are timed after the driven paths, in this process, with nothing
 else on the card.  Then
 config 2's, config 3's and config 4's cold-run launch lists
-(gotoh_cuda.LAUNCH_SHAPES), config 5's, the headline's and config 5 at
-bacterial length's, are replayed with random
+(gotoh_cuda.LAUNCH_SHAPES), config 5's, the headline's, config 5 at
+bacterial length's and the three E. coli length runs' are replayed with random
 contents at the recorded lengths (scripts/gotoh_replay.py): each kernel's
 summed ms, bound and roofline share print on the "main path" lines, and the
 traceback's chain floor beside its bound.
@@ -83,7 +91,7 @@ import torch
 
 from mauvealigner_tpu_torch import native
 from mauvealigner_tpu_torch.core.mln import write_match_list
-from mauvealigner_tpu_torch.models import repeatoire
+from mauvealigner_tpu_torch.models import progressive, repeatoire
 from mauvealigner_tpu_torch.models.aligner import AlignerOptions, MauveAligner
 from mauvealigner_tpu_torch.models.progressive import ProgressiveMauve, ProgressiveOptions
 from mauvealigner_tpu_torch.ops import _build, dp, gotoh_cuda, matchops
@@ -337,28 +345,44 @@ def kernel_checks():
     return stats, check_large_sides(dev)
 
 
+def plain_ms(fn, warm: bool):
+    """(ms, result) of one call of a plain version (CUDA events), after a
+    warm call when `warm`.  A plain call takes 0.3-20 s, so one call gives
+    its time; the first timed side warms the code every later side runs."""
+    if warm:
+        fn()
+    torch.cuda.synchronize()
+    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0.record()
+    out = fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1), out
+
+
 def time_kernels(dev, stats: dict, large: dict) -> None:
     """Time each kernel and its plain version on the inputs kernel_checks
     compared (the same seeds), with nothing else on the card: at
     TIMED_SIDES the forward kernels over 20 launches (5 at sides above
-    512) and the plain versions once, after one warm call each (CUDA
-    events, scripts/gotoh_replay.cuda_ms); the traceback likewise on the
-    plain decisions.  At LARGE_SIDES each forward kernel and the traceback
-    over 3 launches and the plain forward once.  Each time prints beside
-    its bound and fills `stats` and `large` in place."""
+    512, CUDA events, scripts/gotoh_replay.cuda_ms) and the plain versions
+    once (plain_ms, warm at the first side only); the traceback likewise
+    on the plain decisions.  At LARGE_SIDES each forward kernel and the
+    traceback over 3 launches and the plain forward once.  Each time
+    prints beside its bound and fills `stats` and `large` in place."""
     sub = torch.from_numpy(dp.HOXD70.copy()).to(dev)
     go, ge = dp.DEFAULT_GAP_OPEN, dp.DEFAULT_GAP_EXTEND
     sm_mhz = sm_clock_mhz()
+    warm = True
     for side, (_, _, la_h, lb_h), (ca, cb, la, lb) in code_batches(dev):
         if side not in TIMED_SIDES:
             continue
         B, reps_k = batch_of(side), (20 if side <= 512 else 5)
-        _, dec_p = dp.gotoh_forward_codes_ref(ca, cb, la, lb, sub, go, ge)
-        _, cnt_pp = dp.gotoh_traceback_ref(dec_p, la, lb)
+        f_p, (_, dec_p) = plain_ms(lambda: dp.gotoh_forward_codes_ref(ca, cb, la, lb, sub, go, ge),
+                                   warm)
+        t_p, (_, cnt_pp) = plain_ms(lambda: dp.gotoh_traceback_ref(dec_p, la, lb), warm)
+        warm = False
         f_k = cuda_ms(lambda: gotoh_cuda.gotoh_forward_codes(ca, cb, la, lb, sub, go, ge), reps_k)
-        f_p = cuda_ms(lambda: dp.gotoh_forward_codes_ref(ca, cb, la, lb, sub, go, ge), 1)
         t_k = cuda_ms(lambda: gotoh_cuda.gotoh_traceback(dec_p, la, lb), reps_k)
-        t_p = cuda_ms(lambda: dp.gotoh_traceback_ref(dec_p, la, lb), 1)
         f_b = forward_bound("gotoh_forward_codes", la_h, lb_h)
         steps = cnt_pp.cpu().numpy()
         t_b = traceback_bound(steps, side, side)
@@ -372,24 +396,21 @@ def time_kernels(dev, stats: dict, large: dict) -> None:
         record_time(stats["gotoh_forward_codes"], side, B, f_k, f_p, f_b)
         record_time(stats["gotoh_traceback"], side, B, t_k, t_p, t_b, chain_floor_ms=floor)
         del dec_p
+    warm = True
     for side, (_, _, la_h, lb_h), (pa, pb, la, lb) in profile_batches(dev):
         if side not in TIMED_SIDES:
             continue
         B, reps_k = batch_of(side), (20 if side <= 512 else 5)
         f_k = cuda_ms(lambda: gotoh_cuda.gotoh_forward_profiles(pa, pb, la, lb, sub, go, ge), reps_k)
-        f_p = cuda_ms(lambda: dp.gotoh_forward_profiles_ref(pa, pb, la, lb, sub, go, ge), 1)
+        f_p = plain_ms(lambda: dp.gotoh_forward_profiles_ref(pa, pb, la, lb, sub, go, ge), warm)[0]
+        warm = False
         bound = forward_bound("gotoh_forward_profiles", la_h, lb_h)
         say(f"time side={side} B={B}: gotoh_forward_profiles kernel {f_k:.4f} ms, plain "
             f"{f_p:.4f} ms, bound {bound[0]:.6f} ms ({bound[1]}), roofline share "
             f"{bound[0] / f_k:.4f}")
         record_time(stats["gotoh_forward_profiles"], side, B, f_k, f_p, bound)
     for name, side, (la_h, lb_h), x, kernel, plain in large_batches(dev):
-        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        t0.record()
-        plain(*x, sub, go, ge)
-        t1.record()
-        torch.cuda.synchronize()
-        plain_ms = t0.elapsed_time(t1)
+        p_ms = plain_ms(lambda: plain(*x, sub, go, ge), False)[0]
         ms = cuda_ms(lambda: kernel(*x, sub, go, ge), 3)
         bound = forward_bound(name, la_h, lb_h)
         _, dec_k = kernel(*x, sub, go, ge)
@@ -398,10 +419,10 @@ def time_kernels(dev, stats: dict, large: dict) -> None:
         tb_bound = traceback_bound(steps, side, side)
         floor = traceback_chain_floor(steps, sm_mhz)
         say(f"time device slab side={side} B=2: {name} kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, bound {bound[0]:.6f} ms ({bound[1]}), roofline share "
+            f"{p_ms:.4f} ms, bound {bound[0]:.6f} ms ({bound[1]}), roofline share "
             f"{bound[0] / ms:.4f}; gotoh_traceback {tb_ms:.4f} ms, bound {tb_bound[0]:.6f} ms, "
             f"chain floor {floor:.4f} ms ({card_line()})")
-        large[name].update(ms=ms, plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1],
+        large[name].update(ms=ms, plain_ms=p_ms, bound_ms=bound[0], bound_by=bound[1],
                            traceback_ms=tb_ms, traceback_bound_ms=tb_bound[0],
                            traceback_chain_floor_ms=floor)
         del dec_k
@@ -422,103 +443,119 @@ def config1_inputs():
     """bench.py config 1's two 1 Mbp genomes and its golden file."""
     with open(os.path.join(DATA, "config1_golden.json")) as fh:
         golden = json.load(fh)
-    rng = np.random.default_rng(37)
-    anc = simulate.random_genome(rng, 1_000_000)
-    der, _ = simulate.evolve(anc, rng, sub_rate=0.01, ins_rate=0.0005, del_rate=0.0005)
-    hashes = [hashlib.sha256(np.ascontiguousarray(g.codes).tobytes()).hexdigest() for g in (anc, der)]
+    genomes = digest.config1_genomes(simulate)
+    hashes = digest.genome_sha256(genomes)
     if hashes != golden["genome_sha256"]:
         raise SystemExit(
             "config-1 genomes differ from the golden file: numpy's generator "
             f"stream differs on this machine ({hashes} vs {golden['genome_sha256']})"
         )
     say("config1 genomes match the golden sha256")
-    return [anc, der], golden
+    return genomes, golden
+
+
+def aligner_run(aligner, genomes, golden: dict, label: str) -> dict:
+    """One MauveAligner.align on the card with every launch count set to 0
+    just before it, held to the golden's config 1 fields, with the code-pair
+    forward kernel and the traceback launched; returns seconds, launches and
+    launch shapes."""
+    timing.GLOBAL.reset()
+    gotoh_cuda.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = aligner.align(genomes)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(gotoh_cuda.LAUNCHES)
+    shapes = list(gotoh_cuda.LAUNCH_SHAPES)
+    buf = io.StringIO()
+    res.interval_list.write_xmfa(buf)
+    xmfa = buf.getvalue().encode()
+    got = {
+        "n_lcbs": len(res.lcbs),
+        "n_anchors": len(res.mums),
+        "aligned_columns": int(sum(iv.n_cols for iv in res.interval_list.intervals)),
+        "xmfa_sha256": hashlib.sha256(xmfa).hexdigest(),
+        "xmfa_bytes": len(xmfa),
+    }
+    say(f"{label}: {secs:.3f} s, {json.dumps(got)}, launches {launches}, "
+        f"dp_cells {timing.GLOBAL.counters.get('dp_cells', 0):.0f}{sharded_note()}")
+    hold(label, got, golden, got)
+    for k in ("gotoh_forward_codes", "gotoh_traceback"):
+        if launches[k] <= 0:
+            raise SystemExit(f"{label}: kernel {k} was never launched")
+    return {"seconds": secs, "launches": launches, "shapes": shapes}
 
 
 def config1(dev, genomes, golden, mesh=None) -> dict:
     """bench.py config 1 through MauveAligner on the card (over `mesh` when
-    given), held to the JAX package's outputs recorded in the golden file;
-    cold and warm on one device, once under a mesh."""
-    anc, der = genomes
-    name = "config1" if mesh is None else "config1 mesh"
+    given) once, held to the JAX package's outputs recorded in the golden
+    file."""
     aligner = MauveAligner(AlignerOptions(use_sml_cache=False, device=str(dev), mesh=mesh))
-    runs = {}
-    for label in ("cold", "warm") if mesh is None else ("cold",):
-        timing.GLOBAL.reset()
-        gotoh_cuda.reset_launches()
-        torch.cuda.synchronize()
+    r = aligner_run(aligner, genomes, golden, "config1" if mesh is None else "config1 mesh")
+    if mesh is None:
+        say("per-phase report:\n" + timing.GLOBAL.report().rstrip())
+    say(f"peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+    return r
+
+
+def mauve_aligner_cli_run(dev, directory: str, golden: dict, label: str) -> dict:
+    """The port's mauveAligner command line with digest.CONFIG2_ARGS in
+    `directory` (its FASTA files written there), every launch count set to
+    0 just before it; held to every field of the golden file, with every
+    kernel launched; returns seconds, launches and launch shapes."""
+    timing.GLOBAL.reset()
+    gotoh_cuda.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    with contextlib.chdir(directory):
         t0 = time.perf_counter()
-        res = aligner.align([anc, der])
+        rc = port_cli(["mauveAligner", *digest.CONFIG2_ARGS, f"--device={dev}"])
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-        launches = dict(gotoh_cuda.LAUNCHES)
-        buf = io.StringIO()
-        res.interval_list.write_xmfa(buf)
-        xmfa = buf.getvalue().encode()
-        got = {
-            "n_lcbs": len(res.lcbs),
-            "n_anchors": len(res.mums),
-            "aligned_columns": int(sum(iv.n_cols for iv in res.interval_list.intervals)),
-            "xmfa_sha256": hashlib.sha256(xmfa).hexdigest(),
-        }
-        say(f"{name} {label}: {secs:.3f} s, {json.dumps(got)}, launches {launches}, "
-            f"dp_cells {timing.GLOBAL.counters.get('dp_cells', 0):.0f}{sharded_note()}")
-        for k, v in got.items():
-            if v != golden[k]:
-                raise SystemExit(f"{name} {label}: {k} = {v}, golden {golden[k]}")
-        for k in ("gotoh_forward_codes", "gotoh_traceback"):
-            if launches[k] <= 0:
-                raise SystemExit(f"{name} {label}: kernel {k} was never launched")
-        runs[label] = {"seconds": secs, "launches": launches}
-        if label == "warm":
-            say("per-phase report (warm run):\n" + timing.GLOBAL.report().rstrip())
-    say(f"peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
-    return runs
+    launches = dict(gotoh_cuda.LAUNCHES)
+    shapes = list(gotoh_cuda.LAUNCH_SHAPES)
+    got = digest.mauve_aligner_digest(directory)
+    c = timing.GLOBAL.counters
+    say(f"{label}: {secs:.3f} s, rc {rc}, {json.dumps(got)}, launches {launches}, "
+        f"dp_cells {c.get('dp_cells', 0):.0f}, dp_calls {c.get('dp_calls', 0):.0f}")
+    shapes_line(label, shapes)
+    say(f"{label} per-phase report:\n" + timing.GLOBAL.report().rstrip())
+    say(f"{label} peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+    if rc != 0:
+        raise SystemExit(f"{label}: mauveAligner returned {rc}")
+    hold(label, got, golden, digest.CONFIG2_KEYS)
+    for k in KERNELS:
+        if launches[k] <= 0:
+            raise SystemExit(f"{label}: kernel {k} was never launched")
+    return {"seconds": secs, "launches": launches, "shapes": shapes}
+
+
+def shapes_line(label: str, shapes) -> None:
+    """A run's launch list (gotoh_cuda.LAUNCH_SHAPES) summed by kernel and
+    bucket side: launches and problems."""
+    groups = {}
+    for s in shapes:
+        g = groups.setdefault((s["kernel"].split("_")[-1], int(s["M"])), [0, 0])
+        g[0] += 1
+        g[1] += int(s["B"])
+    say(f"{label} launch shapes (kernel side: launches, problems): " + ", ".join(
+        f"{k} {m}: {n}, {b}" for (k, m), (n, b) in sorted(groups.items())))
 
 
 def config2(dev) -> dict:
     """BASELINE config 2 (scripts/bench_configs.py config2: three 500 kbp
     genomes, the second descendant inverted over 150,000-250,000) through
     the port's mauveAligner command line with islands and backbone at 50
-    (utils/digest.CONFIG2_ARGS), cold and warm, each held to every field of
-    the golden file; every kernel must launch."""
+    (utils/digest.CONFIG2_ARGS) once, held to every field of the golden
+    file; every kernel must launch."""
     genomes = digest.config2_genomes(simulate)
     golden = load_golden("config2_golden.json", genomes)
     say("config2 genomes match the golden sha256")
-    runs = {}
     with tempfile.TemporaryDirectory() as d:
         digest.write_fasta_files(genomes, d, digest.CONFIG2_SEQS)
-        for label in ("cold", "warm"):
-            timing.GLOBAL.reset()
-            gotoh_cuda.reset_launches()
-            torch.cuda.reset_peak_memory_stats()
-            torch.cuda.synchronize()
-            with contextlib.chdir(d):
-                t0 = time.perf_counter()
-                rc = port_cli(["mauveAligner", *digest.CONFIG2_ARGS, f"--device={dev}"])
-                torch.cuda.synchronize()
-                secs = time.perf_counter() - t0
-            launches = dict(gotoh_cuda.LAUNCHES)
-            shapes = list(gotoh_cuda.LAUNCH_SHAPES)
-            got = digest.mauve_aligner_digest(d)
-            c = timing.GLOBAL.counters
-            say(f"config2 {label}: {secs:.3f} s, rc {rc}, {json.dumps(got)}, launches {launches}, "
-                f"dp_cells {c.get('dp_cells', 0):.0f}, dp_calls {c.get('dp_calls', 0):.0f}")
-            say("config2 launch shapes (kernel, side, problems): " + ", ".join(
-                f"{s['kernel'].split('_')[-1]} {s['M']} {s['B']}" for s in shapes))
-            say(f"config2 {label} per-phase report:\n" + timing.GLOBAL.report().rstrip())
-            say(f"config2 {label} peak device memory "
-                f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
-            if rc != 0:
-                raise SystemExit(f"config2 {label}: mauveAligner returned {rc}")
-            for k in digest.CONFIG2_KEYS:
-                if got[k] != golden[k]:
-                    raise SystemExit(f"config2 {label}: {k} = {got[k]!r}, golden {golden[k]!r}")
-            for k in KERNELS:
-                if launches[k] <= 0:
-                    raise SystemExit(f"config2 {label}: kernel {k} was never launched")
-            runs[label] = {"seconds": secs, "launches": launches, "shapes": shapes}
-    return runs
+        return mauve_aligner_cli_run(dev, d, golden, "config2")
 
 
 def sharded_note() -> str:
@@ -528,11 +565,14 @@ def sharded_note() -> str:
     return "" if n is None else f", k2_sharded_entries_per_device {n:.0f}"
 
 
-def progressive_run(genomes, golden: dict, label: str, dev, need: tuple, mesh=None) -> dict:
-    """One ProgressiveMauve.align on the card (over `mesh` when given) with
-    every launch count set to 0 just before it; held to the golden digest;
-    returns seconds, launches, the result and its digest."""
-    pm = ProgressiveMauve(ProgressiveOptions(use_sml_cache=False, device=str(dev), mesh=mesh))
+def progressive_run(genomes, golden: dict, label: str, dev, need: tuple, mesh=None,
+                    **options) -> dict:
+    """One ProgressiveMauve.align on the card (over `mesh` when given, with
+    `options` besides) with every launch count set to 0 just before it;
+    held to the golden digest; returns seconds, launches, the result and
+    its digest."""
+    pm = ProgressiveMauve(ProgressiveOptions(use_sml_cache=False, device=str(dev), mesh=mesh,
+                                             **options))
     timing.GLOBAL.reset()
     gotoh_cuda.reset_launches()
     torch.cuda.reset_peak_memory_stats()
@@ -570,31 +610,15 @@ def load_golden(name: str, genomes) -> dict:
     return golden
 
 
-def config3_genomes():
-    """BASELINE config 3 (scripts/bench_configs.py config3: 9 x 250 kbp,
-    seed 37, sub 0.02, indel 0.001)."""
-    rng = np.random.default_rng(37)
-    anc = simulate.random_genome(rng, 250_000)
-    genomes = [anc]
-    for _ in range(8):
-        d, _ = simulate.evolve(anc, rng, sub_rate=0.02, ins_rate=0.001, del_rate=0.001)
-        genomes.append(d)
-    return genomes
-
-
 def config3(dev, genomes, mesh=None) -> dict:
     """Config 3, default options: the extant branch of the gate, closure
-    ordered by the guide tree; cold and warm on one device, once under a
-    mesh."""
+    ordered by the guide tree; once on one device or under `mesh`."""
     golden = load_golden("config3_golden.json", genomes)
     say("config3 genomes match the golden sha256")
     need = ("gotoh_forward_codes", "gotoh_forward_profiles", "gotoh_traceback")
-    name = "config3" if mesh is None else "config3 mesh"
-    runs = {}
-    for label in ("cold", "warm") if mesh is None else ("cold",):
-        r = progressive_run(genomes, golden, f"{name} {label}", dev, need, mesh)
-        runs[label] = {"seconds": r["seconds"], "launches": r["launches"], "shapes": r["shapes"]}
-    return runs
+    r = progressive_run(genomes, golden, "config3" if mesh is None else "config3 mesh", dev,
+                        need, mesh)
+    return {k: r[k] for k in ("seconds", "launches", "shapes")}
 
 
 def tree_run(genomes, truths, golden: dict, label: str, dev, need: tuple) -> dict:
@@ -662,6 +686,21 @@ def headline(dev, genomes, truths) -> dict:
     return {"seconds": r["seconds"], "launches": r["launches"], "shapes": r["shapes"]}
 
 
+def headline_worker() -> dict:
+    """The headline phase in a worker process of its own (a second CUDA
+    context on the card), beside the main process's later phases: builds
+    the genomes, then headline().  Its launch counts are this process's
+    own."""
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    _build.library()  # the parent built it: this loads the library
+    t0 = time.perf_counter()
+    secs, (genomes, truths) = build_inputs("headline")
+    say(f"headline genomes built in {secs:.1f} s in its worker process")
+    r = headline(dev, genomes, truths)
+    return {**r, "phase_seconds": time.perf_counter() - t0}
+
+
 def repeatoire_run(genome, golden: dict, label: str, dev) -> dict:
     """Repeatoire on the card as the CLI runs it with --seeds (seeds,
     chaining, then find_repeats on the chained list), every launch count set
@@ -698,12 +737,11 @@ def repeatoire_run(genome, golden: dict, label: str, dev) -> dict:
 def config4(dev) -> dict:
     """BASELINE config 4 (scripts/bench_configs.py config4: 236 kbp, the
     600 bp unit 8x and the 300 bp unit 4x between random spacers, seed 37),
-    default RepeatoireOptions, cold and warm."""
+    default RepeatoireOptions, once."""
     genome = simulate.planted_repeats(1)
     golden = load_golden("config4_golden.json", [genome])
     say("config4 genome matches the golden sha256")
-    return {label: repeatoire_run(genome, golden, f"config4 {label}", dev)
-            for label in ("cold", "warm")}
+    return repeatoire_run(genome, golden, "config4", dev)
 
 
 def config4_chrom(dev) -> dict:
@@ -785,12 +823,11 @@ def draft_run(ref, drafts, golden: dict, label: str, dev, mesh=None) -> dict:
 def config5(dev, ref, drafts) -> dict:
     """BASELINE config 5 (scripts/bench_configs.py config5: a 150 kbp
     reference and 7 drafts of 6 shuffled, partly inverted contigs, seed 37),
-    the draft workflow cold and warm; then sortContigs and uniqueMerCount
+    the draft workflow once; then sortContigs and uniqueMerCount
     through the port's command line on the reference and the first draft."""
     golden = load_golden("config5_golden.json", [ref] + drafts)
     say("config5 genomes match the golden sha256")
-    runs = {label: draft_run(ref, drafts, golden, f"config5 {label}", dev)
-            for label in ("cold", "warm")}
+    runs = draft_run(ref, drafts, golden, "config5", dev)
     with tempfile.TemporaryDirectory() as d:
         t0 = time.perf_counter()
         got = digest.draft_cli_digest(port_cli, ref, drafts[0], d, [f"--device={dev}"])
@@ -867,6 +904,82 @@ def config5_bacterial(dev, ref, drafts) -> dict:
     return {**r, "mesh_front_half_seconds": secs, "mesh_front_half_peak_bytes": peak}
 
 
+def bacterial_line(label: str, r: dict, golden: dict) -> None:
+    """An E. coli length run's wall, launches, peaks and launch list, beside
+    the JAX package's CPU run of the same genomes."""
+    say(f"{label}: wall {r['seconds']:.3f} s, launches {r['launches']}, peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, peak resident set of this "
+        f"process so far {peak_rss_gib():.2f} GiB; JAX package on the CPU "
+        f"{golden['jax_cpu_seconds']:.1f} s (genome build {golden['genome_build_seconds']:.1f} s, "
+        f"peak resident set {golden['peak_rss_gib']:.2f} GiB) ({card_line()})")
+    shapes_line(label, r["shapes"])
+
+
+def bacterial_golden(name: str, genomes) -> dict:
+    golden = load_golden(f"{name}_golden.json", genomes)
+    say(f"{name} genomes match the golden sha256 ({sum(len(g) for g in genomes):,} bases)")
+    return golden
+
+
+def config1_bacterial(dev, genomes) -> dict:
+    """bench.py config 1 at E. coli length, uncut (two 4.6 Mbp genomes,
+    utils/digest.BACTERIAL_RECIPES), through MauveAligner once, held to
+    config1_bacterial_golden.json."""
+    golden = bacterial_golden("config1_bacterial", genomes)
+    aligner = MauveAligner(AlignerOptions(use_sml_cache=False, device=str(dev)))
+    r = aligner_run(aligner, genomes, golden, "config1_bacterial")
+    say("config1_bacterial per-phase report:\n" + timing.GLOBAL.report().rstrip())
+    bacterial_line("config1_bacterial", r, golden)
+    return r
+
+
+def config2_bacterial(dev, genomes) -> dict:
+    """BASELINE config 2 at E. coli length, uncut (three 4.6 Mbp genomes,
+    the second descendant inverted over 1,380,000-2,300,000), through the
+    port's mauveAligner command line with islands and backbone at 50 once,
+    held to every field of config2_bacterial_golden.json."""
+    golden = bacterial_golden("config2_bacterial", genomes)
+    with tempfile.TemporaryDirectory() as d:
+        digest.write_fasta_files(genomes, d, digest.CONFIG2_SEQS)
+        r = mauve_aligner_cli_run(dev, d, golden, "config2_bacterial")
+    bacterial_line("config2_bacterial", r, golden)
+    return r
+
+
+def config3_extant_bacterial(dev, genomes) -> dict:
+    """BASELINE config 3 at E. coli length, uncut (9 x 4.6 Mbp), through
+    ProgressiveMauve once with tree_progressive=False (the command line's
+    --tree-progressive=0): the extant branch, held to
+    config3_extant_bacterial_golden.json.  Then the default gate's reading
+    of the same genomes: above 4,000,000 bases in all it decides on a 1/16
+    sketched search, whose n-way coverage must equal the golden's."""
+    golden = bacterial_golden("config3_extant_bacterial", genomes)
+    label = "config3_extant_bacterial"
+    r = progressive_run(genomes, golden, label, dev, tuple(KERNELS), tree_progressive=False)
+    got = {"n_anchors": len(r["result"].mums),
+           "nway_coverage": progressive.nway_coverage(r["result"].mums, genomes)}
+    say(f"{label}: {got['n_anchors']} anchors, n-way coverage {got['nway_coverage']:.4f}; "
+        f"digest {r['digest_seconds']:.1f} s")
+    hold(label, {**r["digest"], **got}, golden, tuple(got))
+    if r["digest"]["branch"] != "extant":
+        raise SystemExit(f"{label}: the run took the {r['digest']['branch']} branch")
+    bacterial_line(label, r, golden)
+    opts = ProgressiveOptions(use_sml_cache=False, device=str(dev))
+    t0 = time.perf_counter()
+    sketch = ProgressiveMauve(opts).find_matches(genomes, sketch_mod=opts.distance_sketch)
+    torch.cuda.synchronize()
+    cov = progressive.nway_coverage(sketch, genomes)
+    gate = {"sketch_mod": opts.distance_sketch, "sketched_nway_coverage": cov,
+            "threshold": opts.tree_progressive_threshold,
+            "auto_branch": "tree" if cov < opts.tree_progressive_threshold else "extant"}
+    say(f"{label} default gate: 1/{gate['sketch_mod']} sketched n-way coverage {cov:.4f} against "
+        f"the threshold {gate['threshold']}, so the default options take the "
+        f"{gate['auto_branch']} branch (full density: {got['nway_coverage']:.4f}); sketched "
+        f"search {time.perf_counter() - t0:.3f} s ({card_line()})")
+    hold(f"{label} default gate", gate, golden["gate"], gate)
+    return {k: r[k] for k in ("seconds", "launches", "shapes")}
+
+
 def free_port() -> int:
     with socket.socket() as s:
         s.bind(("localhost", 0))
@@ -925,6 +1038,8 @@ def build_inputs(kind: str):
         out = simulate.draft_genomes(*digest.DRAFT_SHAPES["5wide"])
     elif kind == "config5_bacterial":
         out = simulate.draft_genomes(*digest.DRAFT_SHAPES["5bacterial"])
+    elif kind in digest.BACTERIAL_RECIPES:
+        out = digest.bacterial_genomes(kind, simulate)
     else:
         raise ValueError(kind)
     return time.perf_counter() - t0, out
@@ -950,17 +1065,19 @@ def main() -> int:
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 1
     t_start = time.perf_counter()
-    # the four largest host genome builds (per-base Python loops; config 5
-    # bacterial's about 2 minutes) run in worker processes while the kernels
-    # build and the earlier phases run, and one more worker runs the kernel
-    # checks; spawn, as this process is about to use CUDA
-    kinds = ("config5_bacterial", "headline", "config5_wide", "tree")
+    # the six largest host genome builds (config 5 bacterial's about 2
+    # minutes) run in worker processes while the kernels build and the
+    # earlier phases run, one more worker runs the kernel checks and one
+    # the headline; spawn, as this process is about to use CUDA
+    kinds = ("config5_bacterial", "config5_wide", "tree", *digest.BACTERIAL_RECIPES)
     with concurrent.futures.ProcessPoolExecutor(
-        max_workers=len(kinds) + 1, mp_context=multiprocessing.get_context("spawn")
+        max_workers=len(kinds) + 2, mp_context=multiprocessing.get_context("spawn")
     ) as pool:
         built = {kind: pool.submit(build_inputs, kind) for kind in kinds}
-        kernels, mesh_summary = run_phases(pool, built)
+        kernels, mesh_summary, walls = run_phases(pool, built)
     say(f"mesh summary: {json.dumps(mesh_summary)}")
+    say(f"phase walls (s, host clock, each with its checks and digests; {card_line()}): "
+        f"{json.dumps(walls)}")
     say(f"chip_smoke total: {time.perf_counter() - t_start:.1f} s")
     say(card_line())
     say(json.dumps({"kernels": kernels}))
@@ -974,7 +1091,8 @@ def main() -> int:
 
 def run_phases(pool, built):
     """Every phase in order, the kernel checks on `pool` beside them;
-    returns the kernels line's list and a summary of the mesh phases."""
+    returns the kernels line's list, a summary of the mesh phases and each
+    phase's wall seconds."""
     say(card_line())
     say(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}")
@@ -989,23 +1107,40 @@ def run_phases(pool, built):
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             say(f"  ptxas: {line.strip()}")
 
+    walls = {}
+    lap_start = [time.perf_counter()]
+
+    def lap(name: str) -> None:
+        now = time.perf_counter()
+        walls[name] = round(now - lap_start[0], 1)
+        lap_start[0] = now
+
     checks = pool.submit(kernel_checks)
     c1_genomes, c1_golden = config1_inputs()
     runs = config1(dev, c1_genomes, c1_golden)
+    lap("config1")
     runs2 = config2(dev)
-    c3_genomes = config3_genomes()
+    lap("config2")
+    c3_genomes = digest.config3_genomes(simulate)
     runs3 = config3(dev, c3_genomes)
+    lap("config3")
     tree_genomes, tree_truths = take_built("tree", built["tree"])
     runs_tree = tree_branch(dev, tree_genomes, tree_truths)
+    lap("tree")
     runs_pool = tree_pool(dev, tree_genomes, tree_truths, runs_tree)
+    lap("tree_pool")
     runs4 = config4(dev)
+    lap("config4")
     runs4_big = config4_big(dev)
+    lap("config4_big")
     t0 = time.perf_counter()
     c5_ref, c5_drafts = simulate.draft_genomes(*digest.DRAFT_SHAPES["5"])
     say(f"config5 genomes built in {time.perf_counter() - t0:.1f} s (host)")
     runs5 = config5(dev, c5_ref, c5_drafts)
+    lap("config5")
     w_ref, w_drafts = take_built("config5_wide", built["config5_wide"])
     runs5_wide = config5_wide(dev, w_ref, w_drafts)
+    lap("config5_wide")
 
     # the mesh phases: four logical shards on the one card, each run held to
     # the golden of its single-device phase
@@ -1013,42 +1148,63 @@ def run_phases(pool, built):
     say(f"mesh: {MESH_SHARDS} shards on {dev} ({card_line()}); four shards on one card "
         "measure correctness and overhead, not scaling")
     mesh_runs = {
-        "config1_mesh": config1(dev, c1_genomes, c1_golden, mesh)["cold"],
-        "config3_mesh": config3(dev, c3_genomes, mesh)["cold"],
+        "config1_mesh": config1(dev, c1_genomes, c1_golden, mesh),
+        "config3_mesh": config3(dev, c3_genomes, mesh),
         "config5_mesh": config5_mesh(dev, c5_ref, c5_drafts, mesh),
         "config5_wide_mesh": config5_wide(dev, w_ref, w_drafts, mesh),
     }
-    # beside the single-device warm runs (config 5 wide runs once)
-    single = {"config1_mesh": runs["warm"], "config3_mesh": runs3["warm"],
-              "config5_mesh": runs5["warm"], "config5_wide_mesh": runs5_wide}
+    # beside the single-device runs
+    single = {"config1_mesh": runs, "config3_mesh": runs3, "config5_mesh": runs5,
+              "config5_wide_mesh": runs5_wide}
     for name, r in mesh_runs.items():
         mesh_launch_line(name, r["launches"], single[name]["launches"])
         say(f"{name}: wall {r['seconds']:.3f} s under the mesh, {single[name]['seconds']:.3f} s "
-            f"on one device, warm ({card_line()})")
+            f"on one device ({card_line()})")
     pg = process_group_search(dev, c1_genomes)
+    lap("mesh_runs")
 
-    # the sizes users run: a whole chromosome (while the headline's genomes
-    # finish building), then the headline
+    # the sizes users run: a whole chromosome, then the headline in a
+    # worker process beside config 5 at bacterial length and the E. coli
+    # length runs (each is host-bound and leaves the card idle 96-99% of
+    # its time; run one after the other, they took about 1170 s in all on
+    # a slow host, near the 1200 s a chip check may take)
     runs4_chrom = config4_chrom(dev)
-    h_genomes, h_truths = take_built("headline", built["headline"])
-    runs_headline = headline(dev, h_genomes, h_truths)
-    del h_genomes, h_truths
-    # last, the largest
+    lap("config4_chrom")
+    headline_run = pool.submit(headline_worker)
     b_ref, b_drafts = take_built("config5_bacterial", built["config5_bacterial"])
     runs5_bact = config5_bacterial(dev, b_ref, b_drafts)
     del b_ref, b_drafts
+    lap("config5_bacterial")
+    # BASELINE configs 1, 2 and 3 at E. coli length, uncut, once each
+    runs_bact = {}
+    for kind, run in (("config1_bacterial", config1_bacterial),
+                      ("config2_bacterial", config2_bacterial),
+                      ("config3_extant_bacterial", config3_extant_bacterial)):
+        runs_bact[kind] = run(dev, take_built(kind, built[kind]))
+        lap(kind)
+    t0 = time.perf_counter()
+    runs_headline = headline_run.result()
+    say(f"headline done in its worker process in {runs_headline['phase_seconds']:.1f} s "
+        f"(genome build included); waited {time.perf_counter() - t0:.1f} s for it")
+    walls["headline_worker"] = round(runs_headline["phase_seconds"], 1)
+    lap("headline_wait")
 
     t0 = time.perf_counter()
     stats, large = checks.result()
     say(f"kernel checks done in their worker process; waited {time.perf_counter() - t0:.1f} s "
         "for them")
     time_kernels(dev, stats, large)
-    mainpath2 = mainpath_times(dev, runs2["cold"]["shapes"], "2")
-    mainpath = mainpath_times(dev, runs3["cold"]["shapes"], "3")
-    mainpath4 = mainpath_times(dev, runs4["cold"]["shapes"], "4")
-    mainpath5 = mainpath_times(dev, runs5["cold"]["shapes"], "5")
+    lap("time_kernels")
+    mainpath2 = mainpath_times(dev, runs2["shapes"], "2")
+    mainpath = mainpath_times(dev, runs3["shapes"], "3")
+    mainpath4 = mainpath_times(dev, runs4["shapes"], "4")
+    mainpath5 = mainpath_times(dev, runs5["shapes"], "5")
     mainpath_h = mainpath_times(dev, runs_headline["shapes"], "headline")
     mainpath_5b = mainpath_times(dev, runs5_bact["shapes"], "5 bacterial")
+    mainpath_bact = {kind: mainpath_times(dev, r["shapes"],
+                                          kind.replace("config", "", 1).replace("_", " "))
+                     for kind, r in runs_bact.items()}
+    lap("replays")
 
     kernels = []
     for name, replaces in KERNELS.items():
@@ -1061,20 +1217,21 @@ def run_phases(pool, built):
             "replaces": replaces,
             # launches of the draft workflow's main path (config 5, cold
             # run); each path's own counts beside it
-            "launches": runs5["cold"]["launches"][name],
+            "launches": runs5["launches"][name],
             "launches_by_path": {
-                "config1": runs["cold"]["launches"][name],
-                "config2": runs2["cold"]["launches"][name],
-                "config3": runs3["cold"]["launches"][name],
+                "config1": runs["launches"][name],
+                "config2": runs2["launches"][name],
+                "config3": runs3["launches"][name],
                 "tree": runs_tree["launches"][name],
                 "tree_pool": runs_pool["launches"][name],
-                "config4": runs4["cold"]["launches"][name],
+                "config4": runs4["launches"][name],
                 "config4_big": runs4_big["launches"][name],
                 "config4_chrom": runs4_chrom["launches"][name],
                 "headline": runs_headline["launches"][name],
-                "config5": runs5["cold"]["launches"][name],
+                "config5": runs5["launches"][name],
                 "config5_wide": runs5_wide["launches"][name],
                 "config5_bacterial": runs5_bact["launches"][name],
+                **{k: r["launches"][name] for k, r in runs_bact.items()},
                 **{k: r["launches"][name] for k, r in mesh_runs.items()},
             },
             "max_abs_err": s["max_abs_err"],
@@ -1110,6 +1267,16 @@ def run_phases(pool, built):
             "mainpath_config5_bacterial_bound_ms": mainpath_5b[name]["bound_ms"],
             "mainpath_config5_bacterial_launches": mainpath_5b[name]["launches"],
         })
+        # the E. coli length runs' launch lists; a kernel a list never
+        # launches (config 1's profile kernel) has no times, only its count
+        for kind, m_b in mainpath_bact.items():
+            r = m_b.get(name, {"ms": None, "bound_ms": None, "launches": 0,
+                               "chain_floor_ms": None})
+            kernels[-1].update({f"mainpath_{kind}_ms": r["ms"],
+                                f"mainpath_{kind}_bound_ms": r["bound_ms"],
+                                f"mainpath_{kind}_launches": r["launches"]})
+            if name == "gotoh_traceback":
+                kernels[-1][f"mainpath_{kind}_chain_floor_ms"] = r["chain_floor_ms"]
         if name in large:
             # the largest side checked: above shared memory, the device slab
             kernels[-1]["large_side"] = large[name]
@@ -1131,7 +1298,7 @@ def run_phases(pool, built):
         "process_group": pg,
         "config5_bacterial_front_half_seconds": runs5_bact["mesh_front_half_seconds"],
         "config5_bacterial_front_half_single_device_seconds": runs5_bact["front_half_seconds"],
-    }
+    }, walls
 
 
 if __name__ == "__main__":

@@ -72,8 +72,15 @@ class SortedMerList:
     def seed_length(self) -> int:
         return self.seed.length
 
+    @property
+    def seed_weight(self) -> int:
+        return self.seed.weight
+
     def unique_mer_count(self) -> int:
         return merops.unique_mer_count(self.keys, len(self.keys))
+
+    def get_mer_at_sorted_index(self, i: int) -> int:
+        return int(self.keys[i])
 
 
 def build_sml(genome: Genome, seed: Seed, device="cuda") -> SortedMerList:

@@ -183,6 +183,14 @@ class ProgressiveOptions:
     device: str = "cuda"
 
 
+def nway_coverage(ml, genomes) -> float:
+    """The tree-progressive gate's reading: the summed length of the
+    matches found in every genome over the mean genome length.  `ml` may
+    be either package's MatchList."""
+    return float(ml.multiplicity_filter(len(genomes)).lengths.sum()) / max(
+        float(np.mean([len(g) for g in genomes])), 1.0)
+
+
 @dataclasses.dataclass
 class ProgressiveResult:
     interval_list: IntervalList
@@ -376,10 +384,7 @@ class ProgressiveMauve:
             tree = self.guide_tree(genomes, ml, dist)
         use_tree = o.tree_progressive
         if use_tree is None:
-            nway_cov = float(
-                ml.multiplicity_filter(len(genomes)).lengths.sum()
-            ) / max(float(np.mean([len(g) for g in genomes])), 1.0)
-            use_tree = nway_cov < o.tree_progressive_threshold
+            use_tree = nway_coverage(ml, genomes) < o.tree_progressive_threshold
         if use_tree:
             return self._align_tree_progressive(genomes, ml, tree, timer, dist)
         if sketched:

@@ -33,6 +33,7 @@ from typing import Callable, Dict, List
 
 import numpy as np
 
+from mauvealigner_tpu_torch import __version__
 from mauvealigner_tpu_torch.core.interval import IntervalList
 from mauvealigner_tpu_torch.tools.common import (
     load_genome,
@@ -161,7 +162,7 @@ def mauve_aligner_cli(argv: List[str]) -> int:
                    help="--match-input file is an interval (.mln) file; "
                    "extract its ungapped matches (src/mauveAligner.cpp:504-514)")
     p.add_argument("--version", action="version",
-                   version="%(prog)s (mauvealigner_tpu_torch)")
+                   version=f"%(prog)s (mauvealigner_tpu_torch) {__version__}")
     p.add_argument("--max-gapped-aligner-length", type=int, default=4096)
     p.add_argument("--island-size", type=int, default=0)
     p.add_argument("--island-output", default="")
@@ -529,7 +530,7 @@ def progressive_mauve_cli(argv: List[str]) -> int:
                    help="torch device: cuda runs the CUDA kernels, cpu the "
                    "plain-torch versions (no fallback between them)")
     p.add_argument("--version", action="version",
-                   version="%(prog)s (mauvealigner_tpu_torch)")
+                   version=f"%(prog)s (mauvealigner_tpu_torch) {__version__}")
     p.add_argument("--disable-cache", action="store_true",
                    help="do not read or write the sorted-mer-list cache files "
                    "(<seqfile>.<pattern>.sslist.npz) beside the inputs")

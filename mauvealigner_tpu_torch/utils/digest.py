@@ -127,16 +127,39 @@ CONFIG2_KEYS = ("n_lcbs", "n_anchors", "n_islands", "n_backbone",
                 *(f"{k}_sha256" for k in CONFIG2_FILES))
 
 
-def config2_genomes(simulate_mod) -> list:
-    """scripts/bench_configs.py config2's genomes from either package's
-    simulate module: a 500 kbp ancestor (seed 37), a descendant at sub 0.01
-    and one at sub 0.02 (indel 0.001 each), the second inverted over
-    150,000-250,000."""
+def config1_genomes(simulate_mod, n: int = 1_000_000) -> list:
+    """bench.py config 1's genomes from either package's simulate module: an
+    n bp ancestor (seed 37) and a descendant at sub 0.01, ins 0.0005, del
+    0.0005."""
     rng = np.random.default_rng(37)
-    anc = simulate_mod.random_genome(rng, 500_000)
+    anc = simulate_mod.random_genome(rng, n)
+    der, _ = simulate_mod.evolve(anc, rng, sub_rate=0.01, ins_rate=0.0005, del_rate=0.0005)
+    return [anc, der]
+
+
+def config2_genomes(simulate_mod, n: int = 500_000) -> list:
+    """scripts/bench_configs.py config2's genomes from either package's
+    simulate module: an n bp ancestor (seed 37), a descendant at sub 0.01
+    and one at sub 0.02 (indel 0.001 each), the second inverted over the
+    same fifth of the genome at any n (150,000-250,000 at 500 kbp)."""
+    rng = np.random.default_rng(37)
+    anc = simulate_mod.random_genome(rng, n)
     d1, _ = simulate_mod.evolve(anc, rng, sub_rate=0.01, ins_rate=0.001, del_rate=0.001)
     d2, _ = simulate_mod.evolve(anc, rng, sub_rate=0.02, ins_rate=0.001, del_rate=0.001)
-    return [anc, d1, simulate_mod.apply_inversion(d2, 150_000, 250_000)]
+    return [anc, d1, simulate_mod.apply_inversion(d2, n * 3 // 10, n // 2)]
+
+
+def config3_genomes(simulate_mod, n: int = 250_000, k: int = 9) -> list:
+    """scripts/bench_configs.py config3's genomes from either package's
+    simulate module: an n bp ancestor (seed 37) and k - 1 descendants at sub
+    0.02, indel 0.001."""
+    rng = np.random.default_rng(37)
+    anc = simulate_mod.random_genome(rng, n)
+    genomes = [anc]
+    for _ in range(k - 1):
+        d, _ = simulate_mod.evolve(anc, rng, sub_rate=0.02, ins_rate=0.001, del_rate=0.001)
+        genomes.append(d)
+    return genomes
 
 
 def write_fasta_files(genomes, directory: str, names: Sequence[str]) -> None:
@@ -177,6 +200,18 @@ DRAFT_KEYS = (*FRONT_HALF_KEYS, "bases_accounted")
 # config 5 at bacterial length, one contig per 25 kbp in each
 DRAFT_SHAPES = {"5": (150_000, 8, 6), "5wide": (500_000, 21, 20),
                 "5bacterial": (4_600_000, 21, 184)}
+# BASELINE configs 1, 2 and 3 at E. coli length, uncut: each run's genome
+# recipe (config1_genomes, config2_genomes, config3_genomes) and its length
+BACTERIAL_RECIPES = {"config1_bacterial": (config1_genomes, 4_600_000),
+                     "config2_bacterial": (config2_genomes, 4_600_000),
+                     "config3_extant_bacterial": (config3_genomes, 4_600_000)}
+
+
+def bacterial_genomes(name: str, simulate_mod) -> list:
+    """The genomes of BACTERIAL_RECIPES[name] from either package's simulate
+    module."""
+    recipe, n = BACTERIAL_RECIPES[name]
+    return recipe(simulate_mod, n)
 
 
 def bases_accounted(ivl) -> bool:

@@ -117,9 +117,10 @@ def random_batch(rng, B: int, side: int, lens=None, side_b=None):
     """Code pairs [B, side] / [B, side_b] padded with 255.  Without `lens`,
     lengths are drawn below the sides plus edge cases (1 x 1, empty vs
     non-empty both ways, empty vs empty, full side); with `lens` = (la, lb)
-    those lengths are kept.  Even problems pair related sides (b is a, cut
-    or extended, with 15% substitutions), odd ones unrelated sides; 1% of
-    a's codes are ambiguity codes."""
+    those lengths are kept.  The contents are drawn for every problem at
+    once (a recorded launch may hold 10^5 problems): even problems pair
+    related sides (b is a repeated to lb, with 15% substitutions), odd ones
+    unrelated sides; 1% of a's codes are ambiguity codes."""
     side_b = side if side_b is None else side_b
     if lens is None:
         la = rng.integers(1, side + 1, size=B).astype(np.int32)
@@ -129,39 +130,49 @@ def random_batch(rng, B: int, side: int, lens=None, side_b=None):
             la[k], lb[k] = x, y
     else:
         la, lb = (np.asarray(x, np.int32).copy() for x in lens)
-    ca = np.full((B, side), 255, np.uint8)
-    cb = np.full((B, side_b), 255, np.uint8)
-    for k in range(B):
-        a = rng.integers(0, 4, size=la[k]).astype(np.uint8)
-        if k % 2:  # unrelated pair: many gaps
-            b = rng.integers(0, 4, size=lb[k]).astype(np.uint8)
-        else:  # related pair: a, cut or extended to lb, with substitutions
-            b = np.resize(a, lb[k]) if la[k] else rng.integers(0, 4, size=lb[k]).astype(np.uint8)
-            sub = rng.random(lb[k]) < 0.15
-            b[sub] = rng.integers(0, 4, size=int(sub.sum()))
-        a[rng.random(la[k]) < 0.01] = 4  # a few ambiguity codes
-        ca[k, : la[k]] = a
-        cb[k, : lb[k]] = b
+    a = rng.integers(0, 4, size=(B, side), dtype=np.uint8)
+    related = (np.arange(B) % 2 == 0) & (la > 0)
+    cols = np.arange(side_b)[None, :]
+    b = np.where(related[:, None],
+                 np.take_along_axis(a, cols % np.maximum(la, 1)[:, None], axis=1),
+                 rng.integers(0, 4, size=(B, side_b), dtype=np.uint8))
+    sub = (rng.random((B, side_b)) < 0.15) & (np.arange(B) % 2 == 0)[:, None]
+    b[sub] = rng.integers(0, 4, size=int(sub.sum()), dtype=np.uint8)
+    a[rng.random((B, side)) < 0.01] = 4  # a few ambiguity codes
+    ca = np.where(np.arange(side)[None, :] < la[:, None], a, 255).astype(np.uint8)
+    cb = np.where(cols < lb[:, None], b, 255).astype(np.uint8)
     return ca, cb, la, lb
 
 
+def count_profiles(rng, codes, lens):
+    """uint8 count profiles [B, L, 5] of `codes` [B, L] (lengths `lens`),
+    zero rows past each length, drawn for many problems at once (about 4 M
+    cells a step): 1-9 rows per problem, each a copy of the codes with 10%
+    of its cells redrawn from the four bases, N and a gap (gap cells not
+    counted)."""
+    B, L = codes.shape
+    out = np.zeros((B, L, 5), np.uint8)
+    lens = np.asarray(lens, np.int64)
+    chunk = max(1, (1 << 22) // (9 * max(L, 1)))
+    for lo in range(0, B, chunk):
+        c = codes[lo:lo + chunk]
+        n = len(c)
+        rows = rng.integers(1, 10, size=n)
+        cc = np.repeat(c[:, None, :], 9, axis=1)
+        mut = rng.random((n, 9, L)) < 0.1
+        cc[mut] = rng.integers(0, 6, size=int(mut.sum()), dtype=np.uint8)
+        live = ((np.arange(9)[None, :, None] < rows[:, None, None])
+                & (np.arange(L)[None, None, :] < lens[lo:lo + chunk, None, None]))
+        for lane in range(5):
+            out[lo:lo + chunk, :, lane] = ((cc == lane) & live).sum(axis=1)
+    return out
+
+
 def random_profile_batch(rng, B: int, side: int, lens=None, side_b=None):
-    """uint8 count profiles of 1-9 rows per side (gap cells excluded, a few
-    ambiguity codes), zero rows past each length, with random_batch's
-    lengths and pairing."""
+    """Count profiles (count_profiles) of random_batch's code pairs, with
+    its lengths and pairing."""
     ca, cb, la, lb = random_batch(rng, B, side, lens, side_b)
-    pa = np.zeros((B, ca.shape[1], 5), np.uint8)
-    pb = np.zeros((B, cb.shape[1], 5), np.uint8)
-    for out, codes, lens_ in ((pa, ca, la), (pb, cb, lb)):
-        for k in range(B):
-            n = int(lens_[k])
-            rows = int(rng.integers(1, 10))
-            cc = np.repeat(codes[k, :n][None, :].astype(np.int64), rows, axis=0)
-            mut = rng.random((rows, n)) < 0.1
-            cc[mut] = rng.integers(0, 6, size=int(mut.sum()))  # 5 = gap
-            for r in range(rows):
-                np.add.at(out[k], (np.arange(n)[cc[r] < 5], cc[r][cc[r] < 5]), 1)
-    return pa, pb, la, lb
+    return count_profiles(rng, ca, la), count_profiles(rng, cb, lb), la, lb
 
 
 def forward_bound(kernel: str, la, lb):

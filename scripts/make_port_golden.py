@@ -59,17 +59,31 @@ mauvealigner_tpu_torch/data/, which chip_smoke.py holds the port to:
         (utils/digest.DRAFT_SHAPES); about 25 minutes on 8 CPU
         cores (a 3 minute genome build, then 22 minutes of the run), peak
         resident set 14.3 GiB.
+  1bacterial  config1_bacterial_golden.json: the config 1 fields at E. coli
+        length, uncut: two 4.6 Mbp genomes (utils/digest.BACTERIAL_RECIPES);
+  2bacterial  config2_bacterial_golden.json: the config 2 fields on three
+        4.6 Mbp genomes, the second descendant inverted over
+        1,380,000-2,300,000;
+  3bacterial  config3_extant_bacterial_golden.json: the config 3 fields on
+        9 x 4.6 Mbp, with ProgressiveOptions(tree_progressive=False) (the
+        command line's --tree-progressive=0: the extant branch, which the
+        default gate does not take at this size), plus the anchor count,
+        the n-way coverage of those anchors, and the default gate's reading
+        (its 1/16 sketched search's n-way coverage, the threshold, and the
+        branch it would take).
 
 The progressive and repeatoire goldens record the JAX run's wall seconds
-on the CPU as "jax_cpu_seconds"; the draft goldens also the genome
-build's seconds, the front half's ("jax_cpu_front_seconds") and the
-process's peak resident set ("peak_rss_gib"), and the whole run's
-seconds cover both halves.
+on the CPU as "jax_cpu_seconds"; the draft and the three E. coli length
+goldens also the genome build's seconds ("genome_build_seconds") and the
+process's peak resident set ("peak_rss_gib"), and the draft goldens the
+front half's seconds ("jax_cpu_front_seconds"; the whole run's seconds
+cover both halves).
 
 Usage:  JAX_PLATFORMS=cpu python scripts/make_port_golden.py [1] [2] [3] [tree] [4] [4big]
-            [5] [5wide] [headline] [4chrom] [5bacterial]
-        (no argument: all eleven; headline, 4chrom and 5bacterial are best
-        run in the background with nohup and a log)
+            [5] [5wide] [headline] [4chrom] [5bacterial] [1bacterial] [2bacterial] [3bacterial]
+        (no argument: all fourteen; the full sizes are best run one to a
+        process, so that each records its own peak resident set, in the
+        background with nohup and a log)
 """
 
 import argparse
@@ -90,20 +104,18 @@ import jax  # noqa: E402
 
 jax.config.update("jax_platforms", "cpu")
 
-import numpy as np  # noqa: E402
-
 from mauvealigner_tpu.core.mln import write_match_list  # noqa: E402
 from mauvealigner_tpu.models import repeatoire  # noqa: E402
 from mauvealigner_tpu.models.aligner import AlignerOptions, MauveAligner  # noqa: E402
 from mauvealigner_tpu.models.progressive import ProgressiveMauve, ProgressiveOptions  # noqa: E402
 from mauvealigner_tpu.utils import simulate, timing  # noqa: E402
 from mauvealigner_tpu_torch import interop  # noqa: E402
+from mauvealigner_tpu_torch.models import progressive as port_progressive  # noqa: E402
 from mauvealigner_tpu_torch.utils import digest  # noqa: E402
 from mauvealigner_tpu_torch.utils import simulate as port_simulate  # noqa: E402
 
 GENOME_SIZE = 1_000_000
 HEADLINE_SIZE = 4_600_000
-SEED = 37
 DATA = os.path.join(os.path.dirname(__file__), "..", "mauvealigner_tpu_torch", "data")
 
 
@@ -116,22 +128,10 @@ def _write(name: str, golden: dict) -> None:
     print(json.dumps(golden))
 
 
-def config3_genomes(simulate_mod, n=250_000, k=9):
-    """scripts/bench_configs.py config3's genomes, from either package's
-    simulate module."""
-    rng = np.random.default_rng(SEED)
-    anc = simulate_mod.random_genome(rng, n)
-    genomes = [anc]
-    for _ in range(k - 1):
-        d, _ = simulate_mod.evolve(anc, rng, sub_rate=0.02, ins_rate=0.001, del_rate=0.001)
-        genomes.append(d)
-    return genomes
-
-
-def _progressive(genomes, label: str, bbcols_name: str) -> dict:
+def _progressive(genomes, label: str, bbcols_name: str, **options) -> dict:
     timing.GLOBAL.reset()
     t0 = time.perf_counter()
-    res = ProgressiveMauve(ProgressiveOptions(use_sml_cache=False)).align(genomes)
+    res = ProgressiveMauve(ProgressiveOptions(use_sml_cache=False, **options)).align(genomes)
     seconds = time.perf_counter() - t0
     branch = "tree" if "tree_progressive" in timing.GLOBAL.phases else "extant"
     golden = {
@@ -149,7 +149,7 @@ def _progressive(genomes, label: str, bbcols_name: str) -> dict:
 
 def config3() -> None:
     golden, _ = _progressive(
-        config3_genomes(simulate),
+        digest.config3_genomes(simulate),
         "BASELINE config 3 (scripts/bench_configs.py config3): seed 37, "
         "random_genome(250_000) + 8 x evolve(sub_rate=0.02, ins_rate=0.001, "
         "del_rate=0.001), ProgressiveOptions(use_sml_cache=False)",
@@ -192,60 +192,137 @@ def headline() -> None:
         "headline.xmfa.bbcols"))
 
 
-def config1() -> None:
-    rng = np.random.default_rng(SEED)
-    anc = simulate.random_genome(rng, GENOME_SIZE)
-    der, _ = simulate.evolve(anc, rng, sub_rate=0.01, ins_rate=0.0005, del_rate=0.0005)
+def _aligner_golden(genomes, label: str) -> tuple:
+    """(golden fields, seconds) of MauveAligner(use_sml_cache=False).align on
+    `genomes`, as bench.py runs config 1."""
     t0 = time.perf_counter()
-    res = MauveAligner(AlignerOptions(use_sml_cache=False)).align([anc, der])
+    res = MauveAligner(AlignerOptions(use_sml_cache=False)).align(genomes)
     seconds = time.perf_counter() - t0
     buf = io.StringIO()
     res.interval_list.write_xmfa(buf)
     xmfa = buf.getvalue().encode()
     golden = {
-        "config": "bench.py config 1: seed 37, random_genome(1_000_000), "
-        "evolve(sub_rate=0.01, ins_rate=0.0005, del_rate=0.0005), "
-        "AlignerOptions(use_sml_cache=False)",
+        "config": label,
         "reference": "mauvealigner_tpu (JAX) on the CPU",
-        "genome_sha256": [
-            hashlib.sha256(np.ascontiguousarray(g.codes).tobytes()).hexdigest()
-            for g in (anc, der)
-        ],
-        "genome_lengths": [len(anc), len(der)],
+        "genome_sha256": digest.genome_sha256(genomes),
+        "genome_lengths": [len(g) for g in genomes],
         "n_lcbs": len(res.lcbs),
         "n_anchors": len(res.mums),
         "aligned_columns": int(sum(iv.n_cols for iv in res.interval_list.intervals)),
         "xmfa_sha256": hashlib.sha256(xmfa).hexdigest(),
         "xmfa_bytes": len(xmfa),
     }
+    print(f"{label}: reference run took {seconds:.1f} s on the CPU", file=sys.stderr)
+    return golden, seconds
+
+
+def config1() -> None:
+    golden, _ = _aligner_golden(
+        digest.config1_genomes(simulate, GENOME_SIZE),
+        "bench.py config 1: seed 37, random_genome(1_000_000), "
+        "evolve(sub_rate=0.01, ins_rate=0.0005, del_rate=0.0005), "
+        "AlignerOptions(use_sml_cache=False)")
     _write("config1_golden.json", golden)
-    print(f"config 1: reference run took {seconds:.1f} s on the CPU", file=sys.stderr)
 
 
-def config2() -> None:
+def _bacterial_genomes(name: str) -> tuple:
+    """(JAX-package genomes, build seconds) of digest.BACTERIAL_RECIPES[name]:
+    drawn with the port's simulate module (the same draws as the JAX
+    package's, several times faster; tests/test_torch_recipes.py)."""
+    t0 = time.perf_counter()
+    genomes = [_jax_genome(g) for g in digest.bacterial_genomes(name, port_simulate)]
+    build = time.perf_counter() - t0
+    print(f"{name}: genomes built in {build:.1f} s", file=sys.stderr)
+    return genomes, build
+
+
+def _peak_rss_gib() -> float:
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+
+
+def config1_bacterial() -> None:
+    genomes, build = _bacterial_genomes("config1_bacterial")
+    golden, seconds = _aligner_golden(
+        genomes,
+        "bench.py config 1 at E. coli length, uncut: seed 37, random_genome(4_600_000), "
+        "evolve(sub_rate=0.01, ins_rate=0.0005, del_rate=0.0005), "
+        "AlignerOptions(use_sml_cache=False)")
+    golden.update(genome_build_seconds=build, jax_cpu_seconds=seconds,
+                  peak_rss_gib=_peak_rss_gib())
+    _write("config1_bacterial_golden.json", golden)
+
+
+def _mauve_aligner_golden(genomes, label: str, directory: str) -> tuple:
+    """(golden fields, seconds) of the JAX mauveAligner command line with
+    digest.CONFIG2_ARGS on `genomes`, written as FASTA files in
+    `directory`."""
     from mauvealigner_tpu.tools.cli import main as jax_cli
 
-    genomes = digest.config2_genomes(simulate)
-    with tempfile.TemporaryDirectory() as d:
-        digest.write_fasta_files(genomes, d, digest.CONFIG2_SEQS)
-        with contextlib.chdir(d):
-            t0 = time.perf_counter()
-            if jax_cli(["mauveAligner", *digest.CONFIG2_ARGS]) != 0:
-                raise SystemExit("config 2: the JAX mauveAligner command line failed")
-            seconds = time.perf_counter() - t0
-        got = digest.mauve_aligner_digest(d)
+    digest.write_fasta_files(genomes, directory, digest.CONFIG2_SEQS)
+    with contextlib.chdir(directory):
+        t0 = time.perf_counter()
+        if jax_cli(["mauveAligner", *digest.CONFIG2_ARGS]) != 0:
+            raise SystemExit(f"{label}: the JAX mauveAligner command line failed")
+        seconds = time.perf_counter() - t0
     golden = {
-        "config": "BASELINE config 2 (scripts/bench_configs.py config2): seed 37, "
-        "random_genome(500_000), evolve(sub_rate=0.01) and evolve(sub_rate=0.02) with "
-        "ins_rate=del_rate=0.001, the second inverted over 150,000-250,000; "
-        "mauveAligner " + " ".join(digest.CONFIG2_ARGS),
+        "config": label,
         "reference": "mauvealigner_tpu (JAX) on the CPU",
         "genome_sha256": digest.genome_sha256(genomes),
         "genome_lengths": [len(g) for g in genomes],
-        **got,
+        **digest.mauve_aligner_digest(directory),
     }
+    print(f"{label}: reference run took {seconds:.1f} s on the CPU", file=sys.stderr)
+    return golden, seconds
+
+
+def config2() -> None:
+    with tempfile.TemporaryDirectory() as d:
+        golden, _ = _mauve_aligner_golden(
+            digest.config2_genomes(simulate),
+            "BASELINE config 2 (scripts/bench_configs.py config2): seed 37, "
+            "random_genome(500_000), evolve(sub_rate=0.01) and evolve(sub_rate=0.02) with "
+            "ins_rate=del_rate=0.001, the second inverted over 150,000-250,000; "
+            "mauveAligner " + " ".join(digest.CONFIG2_ARGS), d)
     _write("config2_golden.json", golden)
-    print(f"config 2: reference run took {seconds:.1f} s on the CPU", file=sys.stderr)
+
+
+def config2_bacterial() -> None:
+    genomes, build = _bacterial_genomes("config2_bacterial")
+    with tempfile.TemporaryDirectory() as d:
+        golden, seconds = _mauve_aligner_golden(
+            genomes,
+            "BASELINE config 2 at E. coli length, uncut: seed 37, random_genome(4_600_000), "
+            "evolve(sub_rate=0.01) and evolve(sub_rate=0.02) with ins_rate=del_rate=0.001, "
+            "the second inverted over 1,380,000-2,300,000; mauveAligner "
+            + " ".join(digest.CONFIG2_ARGS), d)
+    golden.update(genome_build_seconds=build, jax_cpu_seconds=seconds,
+                  peak_rss_gib=_peak_rss_gib())
+    _write("config2_bacterial_golden.json", golden)
+
+
+def config3_extant_bacterial() -> None:
+    genomes, build = _bacterial_genomes("config3_extant_bacterial")
+    golden, res = _progressive(
+        genomes,
+        "BASELINE config 3 at E. coli length, uncut: seed 37, random_genome(4_600_000) + "
+        "8 x evolve(sub_rate=0.02, ins_rate=0.001, del_rate=0.001), "
+        "ProgressiveOptions(use_sml_cache=False, tree_progressive=False) "
+        "(--tree-progressive=0: the extant branch)",
+        "config3_extant_bacterial.xmfa.bbcols", tree_progressive=False)
+    golden["n_anchors"] = len(res.mums)
+    golden["nway_coverage"] = port_progressive.nway_coverage(res.mums, genomes)
+    # the default gate's reading: above 4,000,000 bases in all it decides on
+    # a 1/16 mer sketch's n-way coverage
+    opts = ProgressiveOptions(use_sml_cache=False)
+    t0 = time.perf_counter()
+    sketch = ProgressiveMauve(opts).find_matches(genomes, sketch_mod=opts.distance_sketch)
+    cov = port_progressive.nway_coverage(sketch, genomes)
+    golden["gate"] = {"sketch_mod": opts.distance_sketch, "sketched_nway_coverage": cov,
+                      "threshold": opts.tree_progressive_threshold,
+                      "auto_branch": "tree" if cov < opts.tree_progressive_threshold else "extant",
+                      "jax_cpu_seconds": time.perf_counter() - t0}
+    golden.update(genome_build_seconds=build, peak_rss_gib=_peak_rss_gib())
+    _write("config3_extant_bacterial_golden.json", golden)
 
 
 def _repeatoire(spacer_scale: int, name: str, label: str) -> None:
@@ -330,7 +407,7 @@ def _draft_workflow(name: str, label: str, shape: str, with_cli: bool) -> None:
     golden["genome_build_seconds"] = build
     golden["jax_cpu_front_seconds"] = front
     golden["jax_cpu_seconds"] = seconds
-    golden["peak_rss_gib"] = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+    golden["peak_rss_gib"] = _peak_rss_gib()
     _write(name, golden)
     print(f"{label}: reference run took {seconds:.1f} s on the CPU (front half "
           f"{front:.1f} s)", file=sys.stderr)
@@ -366,7 +443,9 @@ def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     run = {"1": config1, "2": config2, "3": config3, "tree": tree_branch, "4": config4,
            "4big": config4_big, "5": config5, "5wide": config5_wide, "headline": headline,
-           "4chrom": config4_chrom, "5bacterial": config5_bacterial}
+           "4chrom": config4_chrom, "5bacterial": config5_bacterial,
+           "1bacterial": config1_bacterial, "2bacterial": config2_bacterial,
+           "3bacterial": config3_extant_bacterial}
     p.add_argument("configs", nargs="*", choices=list(run), default=[])
     a = p.parse_args()
     for c in a.configs or list(run):

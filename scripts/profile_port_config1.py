@@ -4,14 +4,17 @@ Config 1 (bench.py: two 1 Mbp genomes about 1% apart, seed 37) runs
 through mauvealigner_tpu_torch's MauveAligner; config 2 (BASELINE config 2,
 scripts/bench_configs.py: three 500 kbp genomes, one inverted stretch)
 through the port's mauveAligner command line with islands and backbone at
-50 (utils/digest.CONFIG2_ARGS), in a temporary directory.  Each runs on
+50 (utils/digest.CONFIG2_ARGS), in a temporary directory.  1bacterial and
+2bacterial run the same at E. coli length, uncut (4.6 Mbp genomes,
+utils/digest.BACTERIAL_RECIPES).  Each runs on
 cuda:0 once to warm up (kernel build, allocator, caches), then once under
 torch.profiler (CPU + CUDA activities).  Prints the per-phase host report,
 the kernels by device time, one line per Gotoh kernel (launches and device
 ms), and the device busy and idle shares of the profiled run with the
 card's name and power limit; writes the Chrome trace to --trace.
 
-Usage:  python scripts/profile_port_config1.py [1|2] [--trace build/config1_trace.json]
+Usage:  python scripts/profile_port_config1.py [1|2|1bacterial|2bacterial]
+            [--trace build/config1_trace.json]
 """
 
 import argparse
@@ -24,7 +27,6 @@ import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-import numpy as np  # noqa: E402
 import torch  # noqa: E402
 from torch.autograd import DeviceType  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
@@ -37,25 +39,35 @@ GOTOH_KERNELS = ("gotoh_forward_codes_kernel", "gotoh_forward_profiles_kernel",
                  "gotoh_traceback_kernel")
 
 
-def config1_run():
-    rng = np.random.default_rng(37)
-    anc = simulate.random_genome(rng, 1_000_000)
-    der, _ = simulate.evolve(anc, rng, sub_rate=0.01, ins_rate=0.0005, del_rate=0.0005)
+def config1_run(genomes):
     aligner = MauveAligner(AlignerOptions(use_sml_cache=False, device="cuda"))
-    return lambda: aligner.align([anc, der])
+    return lambda: aligner.align(genomes)
 
 
 @contextlib.contextmanager
-def config2_run():
+def config2_run(genomes):
     with tempfile.TemporaryDirectory() as d:
-        digest.write_fasta_files(digest.config2_genomes(simulate), d, digest.CONFIG2_SEQS)
+        digest.write_fasta_files(genomes, d, digest.CONFIG2_SEQS)
         with contextlib.chdir(d):
             yield lambda: port_cli(["mauveAligner", *digest.CONFIG2_ARGS, "--device=cuda"])
 
 
+def workload(config: str):
+    """A context giving a callable that runs the configuration once."""
+    if config == "1":
+        return contextlib.nullcontext(config1_run(digest.config1_genomes(simulate)))
+    if config == "2":
+        return config2_run(digest.config2_genomes(simulate))
+    genomes = digest.bacterial_genomes(f"config{config[0]}_bacterial", simulate)
+    if config == "1bacterial":
+        return contextlib.nullcontext(config1_run(genomes))
+    return config2_run(genomes)
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("config", nargs="?", default="1", choices=["1", "2"])
+    p.add_argument("config", nargs="?", default="1",
+                   choices=["1", "2", "1bacterial", "2bacterial"])
     p.add_argument("--trace", default="")
     a = p.parse_args()
     if not torch.cuda.is_available():
@@ -67,7 +79,7 @@ def main() -> int:
     ).stdout.strip()
     print(card)
     trace = a.trace or f"build/config{a.config}_trace.json"
-    with (config2_run() if a.config == "2" else contextlib.nullcontext(config1_run())) as run:
+    with workload(a.config) as run:
         run()  # warm-up
         torch.cuda.synchronize()
         timing.GLOBAL.reset()

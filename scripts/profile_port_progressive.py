@@ -1,6 +1,8 @@
 """Where a progressive run's time goes on the GPU, for the PyTorch port.
 
-Builds config 3 (9 x 250 kbp, scripts/bench_configs.py), the 9 x 1 Mbp
+Builds config 3 (9 x 250 kbp, scripts/bench_configs.py; 3bacterial: 9 x
+4.6 Mbp, uncut, through the extant branch as --tree-progressive=0 runs it,
+utils/digest.BACTERIAL_RECIPES), the 9 x 1 Mbp
 enterobacteria-like genomes of the tree-progressive branch (--size sets
 their length: 4600000 gives BASELINE.md's headline, the genomes of
 scripts/bench_enterobacteria.py), or config 5's
@@ -15,7 +17,7 @@ report (of the progressive run), the kernels by device time, one line per
 Gotoh kernel (launches and device ms) and the device busy and idle shares
 of the profiled run, with the card's name and power limit.
 
-Usage:  python scripts/profile_port_progressive.py [3|tree|5|5wide|5bacterial] [--size N]
+Usage:  python scripts/profile_port_progressive.py [3|3bacterial|tree|5|5wide|5bacterial] [--size N]
             [--trace PATH] [--root DIR]
 
 `--root DIR` imports the port's package from DIR (another checkout, for
@@ -29,7 +31,6 @@ import subprocess
 import sys
 import time
 
-import numpy as np
 import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
@@ -41,16 +42,13 @@ DRAFTS = ("5", "5wide", "5bacterial")
 
 
 def genomes_of(config: str, size: int):
-    from mauvealigner_tpu_torch.utils import simulate
+    from mauvealigner_tpu_torch.utils import digest, simulate
 
     if config == "tree":
         return simulate.enterobacteria_like(size, 9, 0.08)[0]
-    rng = np.random.default_rng(37)
-    anc = simulate.random_genome(rng, 250_000)
-    out = [anc]
-    for _ in range(8):
-        out.append(simulate.evolve(anc, rng, sub_rate=0.02, ins_rate=0.001, del_rate=0.001)[0])
-    return out
+    if config == "3bacterial":
+        return digest.bacterial_genomes("config3_extant_bacterial", simulate)
+    return digest.config3_genomes(simulate)
 
 
 def workload(config: str, size: int):
@@ -70,13 +68,16 @@ def workload(config: str, size: int):
             pm.align([ref] + reordered)
         return run
     genomes = genomes_of(config, size)
-    pm = ProgressiveMauve(ProgressiveOptions(device="cuda"))
+    # 3bacterial: the extant branch, which the default gate does not take
+    # at this size
+    pm = ProgressiveMauve(ProgressiveOptions(
+        device="cuda", **({"tree_progressive": False} if config == "3bacterial" else {})))
     return lambda: pm.align(genomes)
 
 
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("config", nargs="?", default="3", choices=["3", "tree", *DRAFTS])
+    p.add_argument("config", nargs="?", default="3", choices=["3", "3bacterial", "tree", *DRAFTS])
     p.add_argument("--size", type=int, default=1_000_000,
                    help="genome length of the tree configuration")
     p.add_argument("--trace", default="")

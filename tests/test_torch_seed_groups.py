@@ -92,6 +92,19 @@ def test_build_sml_matches_jax(rng, n):
     assert got.seq_length == n
 
 
+@pytest.mark.parametrize("weight", [9, 15])
+def test_sml_accessors_match_jax(rng, weight):
+    """seed_weight, seed_length, unique_mer_count and the mer at every
+    sorted index equal the JAX SortedMerList's."""
+    (ref,), (got,) = _smls_both([_genome(rng, 2500, with_n=True)], weight)
+    assert got.seed_weight == ref.seed_weight == weight
+    assert got.seed_length == ref.seed_length
+    assert got.unique_mer_count() == ref.unique_mer_count()
+    mers = [got.get_mer_at_sorted_index(i) for i in range(len(got.keys))]
+    assert mers == [ref.get_mer_at_sorted_index(i) for i in range(len(ref.keys))]
+    assert all(type(m) is int for m in mers) and mers == sorted(mers)
+
+
 def _groups_equal(ref, got):
     for f in ("mer", "seq", "pos", "strand", "seg_id", "occ_unique"):
         a, b = getattr(ref, f), getattr(got, f)

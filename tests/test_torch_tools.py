@@ -272,6 +272,23 @@ def test_tool_list(capsys):
     assert listed == sorted(JAX_TOOLS)
 
 
+@pytest.mark.parametrize("tool", ALIGNERS)
+def test_version_names_the_package_version(tool, capsys):
+    """--version prints the program, the package and its version; the
+    JAX progressiveMauve's line with its package name."""
+    from mauvealigner_tpu_torch import __version__
+
+    with pytest.raises(SystemExit) as exit_:
+        torch_cli([tool, "--version"])
+    assert exit_.value.code == 0
+    line = capsys.readouterr().out.strip()
+    assert line == f"{tool} (mauvealigner_tpu_torch) {__version__}"
+    if tool == "progressiveMauve":
+        with pytest.raises(SystemExit):
+            jax_cli([tool, "--version"])
+        assert capsys.readouterr().out.strip() == line.replace("_torch", "")
+
+
 @pytest.fixture(scope="module")
 def alignment(three):
     """One XMFA (the JAX package's progressiveMauve of the three genomes)
