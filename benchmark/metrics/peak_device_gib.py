@@ -1,0 +1,5 @@
+"""Peak device memory of the window's jobs: torch.cuda.max_memory_allocated() after a reset at the window's start, in GiB."""
+
+
+def read(ctx):
+    return ctx["peak_bytes"] / 2**30 if ctx["peak_bytes"] else None

@@ -1,0 +1,73 @@
+"""BENCHMARK.json against the static rules of the benchmark's contract:
+names, units, lengths, keys, bounds and the files it names."""
+
+import json
+import os
+import re
+
+from benchmark import spec
+
+NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
+UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
+PATH = re.compile(r"^[A-Za-z0-9_./-]{1,200}$")
+SOURCES = {"device_trace", "program_span", "program_counter", "host_clock"}
+
+
+def _text(s):
+    return isinstance(s, str) and 1 <= len(s) <= 200 and "\n" not in s and "\t" not in s
+
+
+def test_benchmark_json_keeps_the_contract():
+    path = os.path.join(spec.ROOT, "BENCHMARK.json")
+    assert os.path.getsize(path) <= 64 * 1024
+    b = json.load(open(path))
+    assert set(b) == {"command", "paths", "run_seconds", "configs", "workloads",
+                      "end_to_end", "per_layer"}
+    assert 1 <= len(b["paths"]) <= 16 and all(PATH.match(p) for p in b["paths"])
+    assert len(b["command"]) <= 32 and all(_text(w) and not w.startswith("/") for w in b["command"])
+    assert isinstance(b["run_seconds"], int) and 1 <= b["run_seconds"] <= 51
+    names = set()
+    configs = {c["name"] for c in b["configs"]}
+    for c in b["configs"]:
+        assert set(c) == {"name", "source", "file", "reduced", "why"}
+        assert NAME.match(c["name"]) and _text(c["source"]) and _text(c["why"])
+        assert c["file"].startswith(tuple(p + "/" for p in b["paths"]))
+        assert len(c["reduced"]) <= 16 and all(NAME.match(k) for k in c["reduced"])
+        data = json.load(open(os.path.join(spec.ROOT, c["file"])))
+        assert data["reduced"] == c["reduced"] and data["source"] == c["source"]
+    assert 1 <= len(b["workloads"]) <= 24
+    pairs = set()
+    for w in b["workloads"]:
+        assert set(w) == {"name", "config", "traffic", "chips", "why"}
+        assert NAME.match(w["name"]) and NAME.match(w["traffic"]) and _text(w["why"])
+        assert w["config"] in configs and w["chips"] in (1, 4)
+        assert (w["config"], w["traffic"]) not in pairs
+        pairs.add((w["config"], w["traffic"]))
+    assert {w["config"] for w in b["workloads"]} == configs
+    cells = {w["name"] for w in b["workloads"]}
+    e2e = {m["name"]: m for m in b["end_to_end"]}
+    assert "setup_s" in e2e and 1 <= len(e2e) <= 16 and 1 <= len(b["per_layer"]) <= 128
+    for m in b["end_to_end"]:
+        assert set(m) <= {"name", "unit", "better", "bound", "source", "workloads"}
+        assert m["source"] in ("host_clock", "device_trace")
+        assert 0.01 <= m["bound"] <= 0.25
+    for m in b["per_layer"]:
+        assert set(m) <= {"name", "unit", "better", "source", "layer", "moves", "workloads"}
+        assert m["source"] in SOURCES and _text(m["layer"]) and m["moves"] in e2e
+        if m["name"].endswith("_roofline"):
+            assert m["unit"] == "%"
+    for m in b["end_to_end"] + b["per_layer"]:
+        assert NAME.match(m["name"]) and UNIT.match(m["unit"]) and m["better"] in ("lower", "higher")
+        assert m["name"] not in names
+        names.add(m["name"])
+        assert set(m.get("workloads", cells)) <= cells
+    for cell in cells:
+        reported = spec.cell(cell)
+        assert any(m["name"] != "setup_s" for m in reported["end_to_end"])
+        assert reported["per_layer"]
+
+
+def test_a_full_check_fits_its_time_with_24_cells():
+    b = spec.benchmark()
+    runs = 2 + 14 * 24
+    assert runs * (b["run_seconds"] + 60) + 24 * 2 * 90 + 1200 <= 43200
