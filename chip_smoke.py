@@ -597,7 +597,8 @@ def progressive_run(genomes, golden: dict, label: str, dev, need: tuple, mesh=No
         if launches[k] <= 0:
             raise SystemExit(f"{label}: kernel {k} was never launched")
     return {"seconds": secs, "launches": launches, "shapes": shapes, "result": res, "digest": got,
-            "digest_seconds": digest_secs, "counters": dict(timing.GLOBAL.counters)}
+            "digest_seconds": digest_secs, "counters": dict(timing.GLOBAL.counters),
+            "phases": dict(timing.GLOBAL.phases)}
 
 
 def load_golden(name: str, genomes) -> dict:
@@ -657,10 +658,10 @@ def tree_pool(dev, genomes, truths, serial: dict) -> dict:
     with mock.patch.dict(os.environ, {"MAUVE_TP_WORKERS": str(POOL_WORKERS)}):
         r = tree_run(genomes, truths, golden, "tree_pool", dev,
                      ("gotoh_forward_codes", "gotoh_traceback"))
-    if "tp_ladder_wall_s" not in r["counters"]:
+    if "tree_progressive/pool" not in r["phases"]:
         raise SystemExit("tree_pool: the ladder did not run on its thread pool")
     say(f"tree_pool: wall {r['seconds']:.3f} s with {POOL_WORKERS} ladder workers, "
-        f"{serial['seconds']:.3f} s serial; ladder {r['counters']['tp_ladder_wall_s']:.3f} s "
+        f"{serial['seconds']:.3f} s serial; ladder {r['phases']['tree_progressive/pool']:.3f} s "
         f"({card_line()})")
     say("tree_pool: launches per kernel pooled / serial: " + ", ".join(
         f"{k} {r['launches'][k]} / {serial['launches'][k]}" for k in KERNELS))

@@ -18,7 +18,6 @@ from __future__ import annotations
 
 import dataclasses
 from typing import Dict, List, Optional, Sequence, TextIO, Tuple, Union
-import time
 
 import numpy as np
 import torch
@@ -180,78 +179,75 @@ def pairwise_homology_posteriors(
     # those columns with iv.aln anyway).
     from mauvealigner_tpu_torch.utils import timing
 
-    t0 = time.perf_counter()
-    jobs = []  # (key, chunk_start_in_compact, symbols_chunk)
-    compact_idx: Dict[Tuple[int, int, int], np.ndarray] = {}
-    full_len: Dict[Tuple[int, int, int], int] = {}
-    for k, iv in enumerate(ivs.intervals):
-        present = [s for s in range(iv.n_seqs) if iv.starts[s] != 0]
-        # signed code rows once per (interval, seq) — every pair reuses them
-        rows = {s: _signed_codes_row(iv, genomes, s) for s in present}
-        for ai in range(len(present)):
-            for bi in range(ai + 1, len(present)):
-                i, j = present[ai], present[bi]
-                sym_full = SYMBOL_LUT[rows[i], rows[j]]
-                key = (k, i, j)
-                nz = np.nonzero(sym_full != SYM_NONE)[0]
-                full_len[key] = len(sym_full)
-                compact_idx[key] = nz
-                sym_c = sym_full[nz]
-                T_c = len(sym_c)
-                if T_c == 0:
-                    continue
-                if T_c <= max_cols:
-                    jobs.append((key, 0, sym_c))
-                else:
-                    # chunk with overlap; posteriors stitched mid-overlap
-                    step = max_cols - overlap
-                    for a in range(0, T_c, step):
-                        b = min(a + max_cols, T_c)
-                        jobs.append((key, a, sym_c[a:b]))
-                        if b == T_c:
-                            break
-    timing.GLOBAL.add("bb_symbols_s", time.perf_counter() - t0)
+    with timing.GLOBAL.phase("bb_symbols"):
+        jobs = []  # (key, chunk_start_in_compact, symbols_chunk)
+        compact_idx: Dict[Tuple[int, int, int], np.ndarray] = {}
+        full_len: Dict[Tuple[int, int, int], int] = {}
+        for k, iv in enumerate(ivs.intervals):
+            present = [s for s in range(iv.n_seqs) if iv.starts[s] != 0]
+            # signed code rows once per (interval, seq) — every pair reuses them
+            rows = {s: _signed_codes_row(iv, genomes, s) for s in present}
+            for ai in range(len(present)):
+                for bi in range(ai + 1, len(present)):
+                    i, j = present[ai], present[bi]
+                    sym_full = SYMBOL_LUT[rows[i], rows[j]]
+                    key = (k, i, j)
+                    nz = np.nonzero(sym_full != SYM_NONE)[0]
+                    full_len[key] = len(sym_full)
+                    compact_idx[key] = nz
+                    sym_c = sym_full[nz]
+                    T_c = len(sym_c)
+                    if T_c == 0:
+                        continue
+                    if T_c <= max_cols:
+                        jobs.append((key, 0, sym_c))
+                    else:
+                        # chunk with overlap; posteriors stitched mid-overlap
+                        step = max_cols - overlap
+                        for a in range(0, T_c, step):
+                            b = min(a + max_cols, T_c)
+                            jobs.append((key, a, sym_c[a:b]))
+                            if b == T_c:
+                                break
     out: Dict[Tuple[int, int, int], np.ndarray] = {}
     if not jobs:
         return out
-    t0 = time.perf_counter()
-    decoded = hmm_ops.bucketed_decode(
-        [sym for (_, _, sym) in jobs],
-        params.log_trans(),
-        np.log([0.5, 0.5]),
-        mode="posterior0" if threshold is None else "threshold0",
-        threshold=0.5 if threshold is None else threshold,
-        max_cols=max_cols,
-        emit_table=params.log_emit_table(),  # [2, 4]; lookup runs on device
-        device=device,
-    )
-    timing.GLOBAL.add("bb_decode_s", time.perf_counter() - t0)
-    t0 = time.perf_counter()
-    compact_out: Dict[Tuple[int, int, int], np.ndarray] = {}
-    for (key, a, sym), p in zip(jobs, decoded):
-        if key not in compact_out:
-            compact_out[key] = np.zeros(
-                len(compact_idx[key]), bool if threshold is not None else np.float64
-            )
-        if a == 0:
-            compact_out[key][a : a + len(sym)] = p
-        else:
-            # skip the first half-overlap (burn-in) when stitching
-            skip = overlap // 2
-            compact_out[key][a + skip : a + len(sym)] = p[skip:]
-    for key, pc in compact_out.items():
-        nz = compact_idx[key]
-        T_full = full_len[key]
-        if len(nz) == T_full:
-            out[key] = pc
-        else:
-            # forward-fill from the nearest decoded column at/before each
-            # position (clamped to the first decoded column at the start)
-            carry = np.maximum(
-                np.searchsorted(nz, np.arange(T_full), side="right") - 1, 0
-            )
-            out[key] = pc[carry]
-    timing.GLOBAL.add("bb_stitch_s", time.perf_counter() - t0)
+    with timing.GLOBAL.phase("bb_decode"):
+        decoded = hmm_ops.bucketed_decode(
+            [sym for (_, _, sym) in jobs],
+            params.log_trans(),
+            np.log([0.5, 0.5]),
+            mode="posterior0" if threshold is None else "threshold0",
+            threshold=0.5 if threshold is None else threshold,
+            max_cols=max_cols,
+            emit_table=params.log_emit_table(),  # [2, 4]; lookup runs on device
+            device=device,
+        )
+    with timing.GLOBAL.phase("bb_stitch"):
+        compact_out: Dict[Tuple[int, int, int], np.ndarray] = {}
+        for (key, a, sym), p in zip(jobs, decoded):
+            if key not in compact_out:
+                compact_out[key] = np.zeros(
+                    len(compact_idx[key]), bool if threshold is not None else np.float64
+                )
+            if a == 0:
+                compact_out[key][a : a + len(sym)] = p
+            else:
+                # skip the first half-overlap (burn-in) when stitching
+                skip = overlap // 2
+                compact_out[key][a + skip : a + len(sym)] = p[skip:]
+        for key, pc in compact_out.items():
+            nz = compact_idx[key]
+            T_full = full_len[key]
+            if len(nz) == T_full:
+                out[key] = pc
+            else:
+                # forward-fill from the nearest decoded column at/before each
+                # position (clamped to the first decoded column at the start)
+                carry = np.maximum(
+                    np.searchsorted(nz, np.arange(T_full), side="right") - 1, 0
+                )
+                out[key] = pc[carry]
     return out
 
 
@@ -283,91 +279,89 @@ def pairwise_homology_bits(
     genomes = ivs.genomes
     from mauvealigner_tpu_torch.utils import timing
 
-    t0 = time.perf_counter()
-    row_blobs: List[np.ndarray] = []   # uint8 row slices, global ids
-    jobs = []   # (key, col_start, global_i, global_j, width)
-    out: Dict[Tuple[int, int, int], np.ndarray] = {}
-    for k, iv in enumerate(ivs.intervals):
-        present = [s for s in range(iv.n_seqs) if iv.starts[s] != 0]
-        if len(present) < 2:
-            continue
-        rows = {
-            s: _signed_codes_row(iv, genomes, s).view(np.uint8) for s in present
-        }
-        T_full = iv.n_cols
-        if T_full <= max_cols:
-            chunks = [(0, T_full)]
-        else:
-            step = max_cols - overlap
-            chunks = []
-            for a in range(0, T_full, step):
-                b = min(a + max_cols, T_full)
-                chunks.append((a, b))
-                if b == T_full:
-                    break
-        for (a, b) in chunks:
-            gidx = {}
-            for s in present:
-                gidx[s] = len(row_blobs)
-                row_blobs.append(rows[s][a:b])
-            for ai in range(len(present)):
-                for bi in range(ai + 1, len(present)):
-                    i, j = present[ai], present[bi]
-                    key = (k, i, j)
-                    if key not in out:
-                        out[key] = np.zeros(T_full, bool)
-                    jobs.append((key, a, gidx[i], gidx[j], b - a))
-    timing.GLOBAL.add("bb_symbols_s", time.perf_counter() - t0)
+    with timing.GLOBAL.phase("bb_symbols"):
+        row_blobs: List[np.ndarray] = []   # uint8 row slices, global ids
+        jobs = []   # (key, col_start, global_i, global_j, width)
+        out: Dict[Tuple[int, int, int], np.ndarray] = {}
+        for k, iv in enumerate(ivs.intervals):
+            present = [s for s in range(iv.n_seqs) if iv.starts[s] != 0]
+            if len(present) < 2:
+                continue
+            rows = {
+                s: _signed_codes_row(iv, genomes, s).view(np.uint8) for s in present
+            }
+            T_full = iv.n_cols
+            if T_full <= max_cols:
+                chunks = [(0, T_full)]
+            else:
+                step = max_cols - overlap
+                chunks = []
+                for a in range(0, T_full, step):
+                    b = min(a + max_cols, T_full)
+                    chunks.append((a, b))
+                    if b == T_full:
+                        break
+            for (a, b) in chunks:
+                gidx = {}
+                for s in present:
+                    gidx[s] = len(row_blobs)
+                    row_blobs.append(rows[s][a:b])
+                for ai in range(len(present)):
+                    for bi in range(ai + 1, len(present)):
+                        i, j = present[ai], present[bi]
+                        key = (k, i, j)
+                        if key not in out:
+                            out[key] = np.zeros(T_full, bool)
+                        jobs.append((key, a, gidx[i], gidx[j], b - a))
     if not jobs:
         return out
-    t0 = time.perf_counter()
-    from mauvealigner_tpu_torch.parallel import context as par_ctx
+    with timing.GLOBAL.phase("bb_decode"):
+        from mauvealigner_tpu_torch.parallel import context as par_ctx
 
-    # f64 transition chain over f32 emissions: the promotion the JAX
-    # package gets under global x64
-    lt = torch.as_tensor(params.log_trans(), dtype=torch.float64, device=device)
-    li = torch.as_tensor(np.log([0.5, 0.5]), dtype=torch.float64, device=device)
-    tab = torch.as_tensor(
-        np.ascontiguousarray(params.log_emit_table().astype(np.float32).T), device=device
-    )  # [4, 2]
-    buckets: Dict[int, List[int]] = {}
-    for idx, (_, _, _, _, width) in enumerate(jobs):
-        # the scan's tree (and so its rounding) depends on the padded width:
-        # the JAX package's power-of-two buckets
-        Tp = 1 << max(4, (width - 1).bit_length())
-        buckets.setdefault(Tp, []).append(idx)
-    for Tp, idxs in buckets.items():
-        cap_pairs = max(8, (1 << 27) // (Tp * 16))
-        for off in range(0, len(idxs), cap_pairs):
-            chunk = [jobs[i] for i in idxs[off : off + cap_pairs]]
-            uniq = sorted({g for (_, _, gi, gj, _) in chunk for g in (gi, gj)})
-            loc = {g: n for n, g in enumerate(uniq)}
-            rows_arr = np.full((len(uniq), Tp), 5, np.uint8)
-            for g, n in loc.items():
-                blob = row_blobs[g]
-                rows_arr[n, : len(blob)] = blob
-            ii = np.zeros(len(chunk), np.int64)
-            jj = np.zeros(len(chunk), np.int64)
-            lens = np.zeros(len(chunk), np.int64)
-            for n, (_, _, gi, gj, width) in enumerate(chunk):
-                ii[n], jj[n], lens[n] = loc[gi], loc[gj], width
-            # batch-sharded under an ambient mesh (per-element decode,
-            # bit-identical to the direct call)
-            bits = par_ctx.shard_batched_call(
-                lambda i2, j2, ln, rws, tb, t, ini, device: hmm_ops.pair_rows_state0_gt(
-                    rws, i2, j2, tb, t, ini, ln, float(threshold)
-                ),
-                [torch.from_numpy(ii), torch.from_numpy(jj), torch.from_numpy(lens)],
-                (torch.from_numpy(rows_arr), tab, lt, li), device=device,
-            )
-            for n, (key, a, _, _, width) in enumerate(chunk):
-                got = bits[n, :width]
-                if a == 0:
-                    out[key][a : a + width] = got
-                else:
-                    skip = overlap // 2
-                    out[key][a + skip : a + width] = got[skip:]
-    timing.GLOBAL.add("bb_decode_s", time.perf_counter() - t0)
+        # f64 transition chain over f32 emissions: the promotion the JAX
+        # package gets under global x64
+        lt = torch.as_tensor(params.log_trans(), dtype=torch.float64, device=device)
+        li = torch.as_tensor(np.log([0.5, 0.5]), dtype=torch.float64, device=device)
+        tab = torch.as_tensor(
+            np.ascontiguousarray(params.log_emit_table().astype(np.float32).T), device=device
+        )  # [4, 2]
+        buckets: Dict[int, List[int]] = {}
+        for idx, (_, _, _, _, width) in enumerate(jobs):
+            # the scan's tree (and so its rounding) depends on the padded width:
+            # the JAX package's power-of-two buckets
+            Tp = 1 << max(4, (width - 1).bit_length())
+            buckets.setdefault(Tp, []).append(idx)
+        for Tp, idxs in buckets.items():
+            cap_pairs = max(8, (1 << 27) // (Tp * 16))
+            for off in range(0, len(idxs), cap_pairs):
+                chunk = [jobs[i] for i in idxs[off : off + cap_pairs]]
+                uniq = sorted({g for (_, _, gi, gj, _) in chunk for g in (gi, gj)})
+                loc = {g: n for n, g in enumerate(uniq)}
+                rows_arr = np.full((len(uniq), Tp), 5, np.uint8)
+                for g, n in loc.items():
+                    blob = row_blobs[g]
+                    rows_arr[n, : len(blob)] = blob
+                ii = np.zeros(len(chunk), np.int64)
+                jj = np.zeros(len(chunk), np.int64)
+                lens = np.zeros(len(chunk), np.int64)
+                for n, (_, _, gi, gj, width) in enumerate(chunk):
+                    ii[n], jj[n], lens[n] = loc[gi], loc[gj], width
+                # batch-sharded under an ambient mesh (per-element decode,
+                # bit-identical to the direct call)
+                bits = par_ctx.shard_batched_call(
+                    lambda i2, j2, ln, rws, tb, t, ini, device: hmm_ops.pair_rows_state0_gt(
+                        rws, i2, j2, tb, t, ini, ln, float(threshold)
+                    ),
+                    [torch.from_numpy(ii), torch.from_numpy(jj), torch.from_numpy(lens)],
+                    (torch.from_numpy(rows_arr), tab, lt, li), device=device,
+                )
+                for n, (key, a, _, _, width) in enumerate(chunk):
+                    got = bits[n, :width]
+                    if a == 0:
+                        out[key][a : a + width] = got
+                    else:
+                        skip = overlap // 2
+                        out[key][a + skip : a + width] = got[skip:]
     return out
 
 
@@ -406,42 +400,41 @@ def detect_backbone(
         )
     from mauvealigner_tpu_torch.utils import timing
 
-    _t0 = time.perf_counter()
-    segments: List[BackboneColumnSegment] = []
-    for k, iv in enumerate(ivs.intervals):
-        present = [s for s in range(iv.n_seqs) if iv.starts[s] != 0]
-        if not present:
-            continue
-        hom = np.zeros((iv.n_seqs, iv.n_cols), bool)
-        for (kk, i, j), good in posts.items():
-            if kk != k:
+    with timing.GLOBAL.phase("bb_detect"):
+        segments: List[BackboneColumnSegment] = []
+        for k, iv in enumerate(ivs.intervals):
+            present = [s for s in range(iv.n_seqs) if iv.starts[s] != 0]
+            if not present:
                 continue
-            hom[i] |= good & iv.aln[i]
-            hom[j] |= good & iv.aln[j]
-        # BigGapsDetector: long gap runs are not backbone for that sequence
-        for s in present:
-            gaps = ~iv.aln[s]
-            d = np.diff(np.concatenate([[0], gaps.view(np.int8), [0]]))
-            starts = np.nonzero(d == 1)[0]
-            ends = np.nonzero(d == -1)[0]
-            for a, b in zip(starts, ends):
-                if b - a > island_gap_size:
-                    hom[s, a:b] = False
-        if len(present) == 1:
-            continue
-        # segment columns by the constant homologous-set signature
-        sig = hom[present].T  # [n_cols, n_present]
-        if not len(sig):
-            continue
-        change = np.ones(iv.n_cols, bool)
-        change[1:] = np.any(sig[1:] != sig[:-1], axis=1)
-        seg_starts = np.nonzero(change)[0]
-        seg_ends = np.append(seg_starts[1:], iv.n_cols)
-        for a, b in zip(seg_starts, seg_ends):
-            seqs = [present[x] for x in range(len(present)) if sig[a, x]]
-            if len(seqs) >= 2:
-                segments.append(BackboneColumnSegment(k, int(a), int(b), seqs))
-    timing.GLOBAL.add("bb_detect_s", time.perf_counter() - _t0)
+            hom = np.zeros((iv.n_seqs, iv.n_cols), bool)
+            for (kk, i, j), good in posts.items():
+                if kk != k:
+                    continue
+                hom[i] |= good & iv.aln[i]
+                hom[j] |= good & iv.aln[j]
+            # BigGapsDetector: long gap runs are not backbone for that sequence
+            for s in present:
+                gaps = ~iv.aln[s]
+                d = np.diff(np.concatenate([[0], gaps.view(np.int8), [0]]))
+                starts = np.nonzero(d == 1)[0]
+                ends = np.nonzero(d == -1)[0]
+                for a, b in zip(starts, ends):
+                    if b - a > island_gap_size:
+                        hom[s, a:b] = False
+            if len(present) == 1:
+                continue
+            # segment columns by the constant homologous-set signature
+            sig = hom[present].T  # [n_cols, n_present]
+            if not len(sig):
+                continue
+            change = np.ones(iv.n_cols, bool)
+            change[1:] = np.any(sig[1:] != sig[:-1], axis=1)
+            seg_starts = np.nonzero(change)[0]
+            seg_ends = np.append(seg_starts[1:], iv.n_cols)
+            for a, b in zip(seg_starts, seg_ends):
+                seqs = [present[x] for x in range(len(present)) if sig[a, x]]
+                if len(seqs) >= 2:
+                    segments.append(BackboneColumnSegment(k, int(a), int(b), seqs))
     return segments
 
 
@@ -1037,67 +1030,66 @@ def apply_backbone(
     merged group's extreme positions are the extremes of its members')."""
     from mauvealigner_tpu_torch.utils import timing
 
-    _t0 = time.perf_counter()
-    if segments:
-        iv_r, a_r, b_r, mem_r = _segment_arrays(segments, ivs.n_seqs)
-        order = np.lexsort((a_r, iv_r))
-        iv_s, a_s, b_s = iv_r[order], a_r[order], b_r[order]
-        mem_s = mem_r[order]
-        joinable = np.zeros(len(order), bool)
-        if len(order) > 1:
-            joinable[1:] = (
-                (iv_s[1:] == iv_s[:-1])
-                & (a_s[1:] == b_s[:-1])
-                & (mem_s[1:] == mem_s[:-1]).all(axis=1)
-            )
-        firsts = np.nonzero(~joinable)[0]
-        lasts = np.append(firsts[1:] - 1, len(order) - 1)
-        iv2, a2, b2 = iv_s[firsts], a_s[firsts], b_s[lasts]
-        mem2 = mem_s[firsts]
-    else:
-        iv2 = a2 = b2 = np.zeros(0, np.int64)
-        mem2 = np.zeros((0, ivs.n_seqs), bool)
-    if (
-        raw_coords is not None
-        and len(segments)
-        and len(raw_coords) == len(segments)
-    ):
-        cs = raw_coords[order]
-        lo_abs = np.abs(cs[:, ::2])
-        hi_abs = np.abs(cs[:, 1::2])
-        sentinel = np.int64(1) << 62
-        lo_abs = np.where(lo_abs == 0, sentinel, lo_abs)
-        lo_min = np.minimum.reduceat(lo_abs, firsts, axis=0)
-        hi_max = np.maximum.reduceat(hi_abs, firsts, axis=0)
-        sign = np.sign(np.add.reduceat(np.sign(cs[:, ::2]), firsts, axis=0))
-        coords = np.zeros((len(firsts), 2 * ivs.n_seqs), np.int64)
-        present = lo_min != sentinel
-        coords[:, ::2] = np.where(present, sign * lo_min, 0)
-        coords[:, 1::2] = np.where(present, sign * hi_max, 0)
-    else:
-        coords = _segment_seq_coordinates_arrays(ivs, iv2, a2, b2, mem2)
-    # merged output is sorted by (interval, col_start): contiguous runs
-    bounds = np.searchsorted(iv2, np.arange(len(ivs.intervals) + 1))
-    new_intervals: List[Interval] = []
-    for k, iv in enumerate(ivs.intervals):
-        lo, hi = int(bounds[k]), int(bounds[k + 1])
-        if lo == hi:
-            new_intervals.append(iv)
-            continue
-        a_arr, b_arr = a2[lo:hi], b2[lo:hi]
-        if hi - lo > 1 and (b_arr[:-1] > a_arr[1:]).any():
-            # overlapping column ranges (external .bbcols only): loop path
-            merged_k = _segments_from_member_arrays(
-                iv2[lo:hi], a_arr, b_arr, mem2[lo:hi]
-            )
-            _apply_backbone_interval_loop(
-                iv, merged_k, list(range(hi - lo)), coords[lo:hi], new_intervals
-            )
+    with timing.GLOBAL.phase("bb_apply"):
+        if segments:
+            iv_r, a_r, b_r, mem_r = _segment_arrays(segments, ivs.n_seqs)
+            order = np.lexsort((a_r, iv_r))
+            iv_s, a_s, b_s = iv_r[order], a_r[order], b_r[order]
+            mem_s = mem_r[order]
+            joinable = np.zeros(len(order), bool)
+            if len(order) > 1:
+                joinable[1:] = (
+                    (iv_s[1:] == iv_s[:-1])
+                    & (a_s[1:] == b_s[:-1])
+                    & (mem_s[1:] == mem_s[:-1]).all(axis=1)
+                )
+            firsts = np.nonzero(~joinable)[0]
+            lasts = np.append(firsts[1:] - 1, len(order) - 1)
+            iv2, a2, b2 = iv_s[firsts], a_s[firsts], b_s[lasts]
+            mem2 = mem_s[firsts]
         else:
-            _apply_backbone_interval_bulk(
-                iv, a_arr, b_arr, coords[lo:hi][:, ::2], new_intervals
-            )
-    timing.GLOBAL.add("bb_apply_s", time.perf_counter() - _t0)
+            iv2 = a2 = b2 = np.zeros(0, np.int64)
+            mem2 = np.zeros((0, ivs.n_seqs), bool)
+        if (
+            raw_coords is not None
+            and len(segments)
+            and len(raw_coords) == len(segments)
+        ):
+            cs = raw_coords[order]
+            lo_abs = np.abs(cs[:, ::2])
+            hi_abs = np.abs(cs[:, 1::2])
+            sentinel = np.int64(1) << 62
+            lo_abs = np.where(lo_abs == 0, sentinel, lo_abs)
+            lo_min = np.minimum.reduceat(lo_abs, firsts, axis=0)
+            hi_max = np.maximum.reduceat(hi_abs, firsts, axis=0)
+            sign = np.sign(np.add.reduceat(np.sign(cs[:, ::2]), firsts, axis=0))
+            coords = np.zeros((len(firsts), 2 * ivs.n_seqs), np.int64)
+            present = lo_min != sentinel
+            coords[:, ::2] = np.where(present, sign * lo_min, 0)
+            coords[:, 1::2] = np.where(present, sign * hi_max, 0)
+        else:
+            coords = _segment_seq_coordinates_arrays(ivs, iv2, a2, b2, mem2)
+        # merged output is sorted by (interval, col_start): contiguous runs
+        bounds = np.searchsorted(iv2, np.arange(len(ivs.intervals) + 1))
+        new_intervals: List[Interval] = []
+        for k, iv in enumerate(ivs.intervals):
+            lo, hi = int(bounds[k]), int(bounds[k + 1])
+            if lo == hi:
+                new_intervals.append(iv)
+                continue
+            a_arr, b_arr = a2[lo:hi], b2[lo:hi]
+            if hi - lo > 1 and (b_arr[:-1] > a_arr[1:]).any():
+                # overlapping column ranges (external .bbcols only): loop path
+                merged_k = _segments_from_member_arrays(
+                    iv2[lo:hi], a_arr, b_arr, mem2[lo:hi]
+                )
+                _apply_backbone_interval_loop(
+                    iv, merged_k, list(range(hi - lo)), coords[lo:hi], new_intervals
+                )
+            else:
+                _apply_backbone_interval_bulk(
+                    iv, a_arr, b_arr, coords[lo:hi][:, ::2], new_intervals
+                )
     return IntervalList(
         genomes=ivs.genomes,
         intervals=new_intervals,

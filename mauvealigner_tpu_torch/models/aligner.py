@@ -288,19 +288,14 @@ class MauveAligner:
                 full = found.multiplicity() >= n
                 gap_ids, found = gap_ids[full], found.select(full)
                 # keep the best collinear chain within each gap
-                import time as _time
+                from mauvealigner_tpu_torch.utils import timing
 
-                from mauvealigner_tpu_torch.utils import timing as _timing
-
-                _t0 = _time.perf_counter()
-                for g in np.unique(gap_ids):
-                    sub_ml = found.select(gap_ids == g)
-                    sub_ml, _ = greedy_breakpoint_elimination(sub_ml, -1)
-                    if len(sub_ml):
-                        new_rows.append(sub_ml)
-                _timing.GLOBAL.add(
-                    "recursion_chain_s", _time.perf_counter() - _t0
-                )
+                with timing.GLOBAL.phase("recursion_chain"):
+                    for g in np.unique(gap_ids):
+                        sub_ml = found.select(gap_ids == g)
+                        sub_ml, _ = greedy_breakpoint_elimination(sub_ml, -1)
+                        if len(sub_ml):
+                            new_rows.append(sub_ml)
             if not new_rows:
                 break
             add = new_rows[0]
@@ -441,9 +436,7 @@ class MauveAligner:
         lcbs: List[LCB],
         seq_profiles: Optional[List[np.ndarray]] = None,
     ) -> IntervalList:
-        import time as _time
-
-        from mauvealigner_tpu_torch.utils import timing as _timing
+        from mauvealigner_tpu_torch.utils import timing
 
         o = self.options
         n = len(genomes)
@@ -451,29 +444,29 @@ class MauveAligner:
             return self._build_intervals_profiles(
                 genomes, ml, lcbs, seq_profiles
             )
-        _t = _time.perf_counter()
         # closure scoring source: the inputs, or the member-aware stand-ins
         closure_src = o.closure_genomes or genomes
         # collect all gap groups over all LCBs for one batched closure pass
         gap_groups: List[List[np.ndarray]] = []
         gap_ref: List[Tuple[int, int]] = []  # (lcb index, position between a,a+1)
         per_lcb_matches: List[MatchList] = []
-        for li, lcb in enumerate(lcbs):
-            sub = self.make_collinear_nonoverlapping(ml.select(lcb.match_indices))
-            per_lcb_matches.append(sub)
-            if len(sub) < 2:
-                continue
-            left, right, strand = self._gap_region_table(sub)
-            for a in range(len(sub) - 1):
-                regions = [
-                    self._extract_region(
-                        closure_src[g], int(left[a, g]), int(right[a, g]), int(strand[a, g])
-                    )
-                    for g in range(n)
-                ]
-                gap_groups.append(regions)
-                gap_ref.append((li, a))
-        _timing.GLOBAL.add("cl_regions_s", _time.perf_counter() - _t)
+        with timing.GLOBAL.phase("cl_regions"):
+            for li, lcb in enumerate(lcbs):
+                sub = self.make_collinear_nonoverlapping(ml.select(lcb.match_indices))
+                per_lcb_matches.append(sub)
+                if len(sub) < 2:
+                    continue
+                left, right, strand = self._gap_region_table(sub)
+                for a in range(len(sub) - 1):
+                    regions = [
+                        self._extract_region(
+                            closure_src[g], int(left[a, g]), int(right[a, g]),
+                            int(strand[a, g]),
+                        )
+                        for g in range(n)
+                    ]
+                    gap_groups.append(regions)
+                    gap_ref.append((li, a))
         if o.gapped and gap_groups:
             gap_alns = closure.align_region_groups(
                 gap_groups,
@@ -487,9 +480,8 @@ class MauveAligner:
             gap_alns = [closure._unaligned_blocks(g) for g in gap_groups]
         gap_table = {ref: aln for ref, aln in zip(gap_ref, gap_alns)}
 
-        _t = _time.perf_counter()
-        intervals = assemble_lcb_intervals(per_lcb_matches, gap_table, n)
-        _timing.GLOBAL.add("cl_assemble_s", _time.perf_counter() - _t)
+        with timing.GLOBAL.phase("cl_assemble"):
+            intervals = assemble_lcb_intervals(per_lcb_matches, gap_table, n)
         return IntervalList(genomes=list(genomes), intervals=intervals)
 
     @staticmethod
@@ -518,44 +510,41 @@ class MauveAligner:
         PSP-style profile alignment, src/progressiveMauve.cpp:575-710) —
         majority-consensus codes still drive anchoring, but gap placement
         sees the full clade composition."""
-        import time as _time
-
-        from mauvealigner_tpu_torch.utils import timing as _timing
+        from mauvealigner_tpu_torch.utils import timing
 
         o = self.options
         n = 2
-        _t = _time.perf_counter()
         prof_pairs = []   # (profA, lenA, profB, lenB)
         pair_ref: List[Tuple[int, int]] = []
         gap_table: dict = {}
         per_lcb_matches: List[MatchList] = []
-        for li, lcb in enumerate(lcbs):
-            sub = self.make_collinear_nonoverlapping(ml.select(lcb.match_indices))
-            per_lcb_matches.append(sub)
-            if len(sub) < 2:
-                continue
-            left, right, strand = self._gap_region_table(sub)
-            for a in range(len(sub) - 1):
-                regs = [
-                    self._extract_profile(
-                        seq_profiles[g], int(left[a, g]), int(right[a, g]),
-                        int(strand[a, g]),
-                    )
-                    for g in range(n)
-                ]
-                la, lb = len(regs[0]), len(regs[1])
-                if la == 0 and lb == 0:
-                    gap_table[(li, a)] = np.zeros((n, 0), bool)
-                elif la == 0 or lb == 0 or max(la, lb) > o.max_gapped_len:
-                    # degenerate or over the cap: unaligned block emission
-                    aln = np.zeros((n, la + lb), bool)
-                    aln[0, :la] = True
-                    aln[1, la:] = True
-                    gap_table[(li, a)] = aln
-                else:
-                    prof_pairs.append((regs[0], la, regs[1], lb))
-                    pair_ref.append((li, a))
-        _timing.GLOBAL.add("cl_regions_s", _time.perf_counter() - _t)
+        with timing.GLOBAL.phase("cl_regions"):
+            for li, lcb in enumerate(lcbs):
+                sub = self.make_collinear_nonoverlapping(ml.select(lcb.match_indices))
+                per_lcb_matches.append(sub)
+                if len(sub) < 2:
+                    continue
+                left, right, strand = self._gap_region_table(sub)
+                for a in range(len(sub) - 1):
+                    regs = [
+                        self._extract_profile(
+                            seq_profiles[g], int(left[a, g]), int(right[a, g]),
+                            int(strand[a, g]),
+                        )
+                        for g in range(n)
+                    ]
+                    la, lb = len(regs[0]), len(regs[1])
+                    if la == 0 and lb == 0:
+                        gap_table[(li, a)] = np.zeros((n, 0), bool)
+                    elif la == 0 or lb == 0 or max(la, lb) > o.max_gapped_len:
+                        # degenerate or over the cap: unaligned block emission
+                        aln = np.zeros((n, la + lb), bool)
+                        aln[0, :la] = True
+                        aln[1, la:] = True
+                        gap_table[(li, a)] = aln
+                    else:
+                        prof_pairs.append((regs[0], la, regs[1], lb))
+                        pair_ref.append((li, a))
         if prof_pairs:
             ops_list = closure._batched_profile_pair_align(
                 prof_pairs,
@@ -568,9 +557,8 @@ class MauveAligner:
             for (li, a), ops in zip(pair_ref, ops_list):
                 ra, rb = dp.ops_to_gap_rows(ops)
                 gap_table[(li, a)] = np.stack([ra, rb])
-        _t = _time.perf_counter()
-        intervals = assemble_lcb_intervals(per_lcb_matches, gap_table, n)
-        _timing.GLOBAL.add("cl_assemble_s", _time.perf_counter() - _t)
+        with timing.GLOBAL.phase("cl_assemble"):
+            intervals = assemble_lcb_intervals(per_lcb_matches, gap_table, n)
         return IntervalList(genomes=list(genomes), intervals=intervals)
 
     # -- full pipeline ------------------------------------------------------
@@ -602,12 +590,9 @@ class MauveAligner:
         extra_matches: Optional[MatchList] = None,
         seq_profiles: Optional[List[np.ndarray]] = None,
     ) -> AlignmentResult:
-        import time as _time
-
         from mauvealigner_tpu_torch.utils import timing
 
         timer = timing.GLOBAL
-        _t = _time.perf_counter()
         with timer.phase("anchoring"):
             ml = self.find_mums(genomes)
             if callable(extra_matches):
@@ -617,29 +602,20 @@ class MauveAligner:
                 extra_matches = extra_matches(ml)
             if extra_matches is not None and len(extra_matches):
                 ml = ml.concat(extra_matches).dedup()
-        timer.add("aln_anchor_s", _time.perf_counter() - _t)
         if self.options.debug:
             from mauvealigner_tpu_torch.core.validate import validate_match_list
 
             validate_match_list(ml, genomes)
-        _t = _time.perf_counter()
         with timer.phase("lcb_determination"):
             ml, lcbs = self.determine_lcbs(genomes, ml)
-        timer.add("aln_lcb_s", _time.perf_counter() - _t)
-        _t = _time.perf_counter()
         if self.options.lcb_extension:
             with timer.phase("lcb_extension"):
                 ml, lcbs = self.extend_lcbs(genomes, ml, lcbs)
-        timer.add("aln_extension_s", _time.perf_counter() - _t)
-        _t = _time.perf_counter()
         if self.options.recursive:
             with timer.phase("recursive_anchoring"):
                 ml, lcbs = self.recursive_anchor(genomes, ml, lcbs)
-        timer.add("aln_recursion_s", _time.perf_counter() - _t)
-        _t = _time.perf_counter()
         with timer.phase("gapped_closure"):
             ivs = self.build_intervals(genomes, ml, lcbs, seq_profiles)
-        timer.add("aln_closure_s", _time.perf_counter() - _t)
         if self.options.debug:
             from mauvealigner_tpu_torch.core.validate import validate_interval_list
 

@@ -18,7 +18,6 @@ for leaf-leaf merges, uint8 count profiles for merges with a multi-row side.
 
 from __future__ import annotations
 
-import time
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -200,21 +199,20 @@ def hierarchical_align_region_groups(
         )
     if plan is None:
         plan = chain_plan(n_seqs)
-    _t0 = time.perf_counter()
-    results: List[Optional[np.ndarray]] = [None] * n_groups
-    state: List[Dict[NodeId, State]] = []
-    for k, regs in enumerate(groups):
-        st: Dict[NodeId, State] = {}
-        for s, r in enumerate(regs):
-            if len(r) > 0:
-                arr = np.asarray(r)
-                if arr.dtype != np.int8:  # int8 callers pass codes <= 4
-                    arr = np.minimum(arr, 4).astype(np.int8)
-                st[s] = (np.array([s], np.int32), arr[None, :])
-        state.append(st)
-        if regs and max(map(len, regs)) > max_len:
-            results[k] = _unaligned_blocks(regs)
-    timing.GLOBAL.add("cl_hier_setup_s", time.perf_counter() - _t0)
+    with timing.GLOBAL.phase("cl_hier_setup"):
+        results: List[Optional[np.ndarray]] = [None] * n_groups
+        state: List[Dict[NodeId, State]] = []
+        for k, regs in enumerate(groups):
+            st: Dict[NodeId, State] = {}
+            for s, r in enumerate(regs):
+                if len(r) > 0:
+                    arr = np.asarray(r)
+                    if arr.dtype != np.int8:  # int8 callers pass codes <= 4
+                        arr = np.minimum(arr, 4).astype(np.int8)
+                    st[s] = (np.array([s], np.int32), arr[None, :])
+            state.append(st)
+            if regs and max(map(len, regs)) > max_len:
+                results[k] = _unaligned_blocks(regs)
 
     for node, left, right in plan:
         jobs = []  # (k, (idsA, ccA), (idsB, ccB))
@@ -265,16 +263,15 @@ def hierarchical_align_region_groups(
             )
             for i, ops in zip(prof_idx, got):
                 ops_all[i] = ops
-        _t0 = time.perf_counter()
-        for (k, A, B), ops in zip(jobs, ops_all):
-            consumes_a = (ops == dp.OP_DIAG) | (ops == dp.OP_UP)
-            consumes_b = (ops == dp.OP_DIAG) | (ops == dp.OP_LEFT)
-            kA = A[1].shape[0]
-            merged = np.full((kA + B[1].shape[0], len(ops)), GAP, np.int8)
-            merged[:kA, consumes_a] = A[1]
-            merged[kA:, consumes_b] = B[1]
-            state[k][node] = (np.concatenate([A[0], B[0]]), merged)
-        timing.GLOBAL.add("cl_hier_merge_s", time.perf_counter() - _t0)
+        with timing.GLOBAL.phase("cl_hier_merge"):
+            for (k, A, B), ops in zip(jobs, ops_all):
+                consumes_a = (ops == dp.OP_DIAG) | (ops == dp.OP_UP)
+                consumes_b = (ops == dp.OP_DIAG) | (ops == dp.OP_LEFT)
+                kA = A[1].shape[0]
+                merged = np.full((kA + B[1].shape[0], len(ops)), GAP, np.int8)
+                merged[:kA, consumes_a] = A[1]
+                merged[kA:, consumes_b] = B[1]
+                state[k][node] = (np.concatenate([A[0], B[0]]), merged)
 
     for k in range(n_groups):
         if results[k] is not None:
@@ -339,30 +336,28 @@ def _batched_code_pair_align(
         side = _bucket_of(max(len(a), len(b)))
         buckets.setdefault(side, []).append(i)
     pending = []  # (chunk, fetch): launch everything, then download
-    t0 = time.perf_counter()
-    for side, idxs in buckets.items():
-        bmax = max(1, min(4096, memory_budget_bytes // dp.dec_bytes(side, side)))
-        for off in range(0, len(idxs), bmax):
-            chunk = idxs[off : off + bmax]
-            ca = np.full((len(chunk), side), 255, np.uint8)
-            cb = np.full((len(chunk), side), 255, np.uint8)
-            la = np.zeros(len(chunk), np.int32)
-            lb = np.zeros(len(chunk), np.int32)
+    with timing.GLOBAL.phase("cl_dp_stage"):
+        for side, idxs in buckets.items():
+            bmax = max(1, min(4096, memory_budget_bytes // dp.dec_bytes(side, side)))
+            for off in range(0, len(idxs), bmax):
+                chunk = idxs[off : off + bmax]
+                ca = np.full((len(chunk), side), 255, np.uint8)
+                cb = np.full((len(chunk), side), 255, np.uint8)
+                la = np.zeros(len(chunk), np.int32)
+                lb = np.zeros(len(chunk), np.int32)
+                for j, i in enumerate(chunk):
+                    a, b = pairs[i]
+                    ca[j, : len(a)] = np.minimum(a, 4)
+                    cb[j, : len(b)] = np.minimum(b, 4)
+                    la[j], lb[j] = len(a), len(b)
+                pending.append((chunk, dp.align_code_pairs_batch_async(
+                    ca, cb, la, lb, subst, gap_open, gap_extend, device
+                )))
+    with timing.GLOBAL.phase("cl_dp_fetch"):
+        for chunk, fetch in pending:
+            ops_list, _ = fetch()
             for j, i in enumerate(chunk):
-                a, b = pairs[i]
-                ca[j, : len(a)] = np.minimum(a, 4)
-                cb[j, : len(b)] = np.minimum(b, 4)
-                la[j], lb[j] = len(a), len(b)
-            pending.append((chunk, dp.align_code_pairs_batch_async(
-                ca, cb, la, lb, subst, gap_open, gap_extend, device
-            )))
-    timing.GLOBAL.add("cl_dp_stage_s", time.perf_counter() - t0)
-    t0 = time.perf_counter()
-    for chunk, fetch in pending:
-        ops_list, _ = fetch()
-        for j, i in enumerate(chunk):
-            results[i] = ops_list[j]
-    timing.GLOBAL.add("cl_dp_fetch_s", time.perf_counter() - t0)
+                results[i] = ops_list[j]
     return results  # type: ignore[return-value]
 
 
@@ -385,43 +380,41 @@ def _batched_profile_pair_align(
         side = _bucket_of(max(la, lb))
         buckets.setdefault(side, []).append(i)
     pending = []  # (chunk, fetch): launch everything, then download
-    t0 = time.perf_counter()
-    for side, idxs in buckets.items():
-        M = N = side
-        bmax = max(1, min(4096, memory_budget_bytes // dp.dec_bytes(M, N)))
-        for off in range(0, len(idxs), bmax):
-            chunk = idxs[off : off + bmax]
-            B = len(chunk)
-            # uint8 counts when every profile in the chunk is uint8 (the
-            # device widens them to f32)
-            dt = (
-                np.uint8
-                if all(
-                    pairs[i][0].dtype == np.uint8
-                    and pairs[i][2].dtype == np.uint8
-                    for i in chunk
+    with timing.GLOBAL.phase("cl_dp_stage"):
+        for side, idxs in buckets.items():
+            M = N = side
+            bmax = max(1, min(4096, memory_budget_bytes // dp.dec_bytes(M, N)))
+            for off in range(0, len(idxs), bmax):
+                chunk = idxs[off : off + bmax]
+                B = len(chunk)
+                # uint8 counts when every profile in the chunk is uint8 (the
+                # device widens them to f32)
+                dt = (
+                    np.uint8
+                    if all(
+                        pairs[i][0].dtype == np.uint8
+                        and pairs[i][2].dtype == np.uint8
+                        for i in chunk
+                    )
+                    else np.float32
                 )
-                else np.float32
-            )
-            pa = np.zeros((B, M, 5), dt)
-            pb = np.zeros((B, N, 5), dt)
-            la = np.zeros(B, np.int32)
-            lb = np.zeros(B, np.int32)
+                pa = np.zeros((B, M, 5), dt)
+                pb = np.zeros((B, N, 5), dt)
+                la = np.zeros(B, np.int32)
+                lb = np.zeros(B, np.int32)
+                for j, i in enumerate(chunk):
+                    prof_a, len_a, prof_b, len_b = pairs[i]
+                    pa[j, :len_a] = prof_a[:len_a]
+                    pb[j, :len_b] = prof_b[:len_b]
+                    la[j], lb[j] = len_a, len_b
+                pending.append((chunk, dp.align_profiles_batch_async(
+                    pa, pb, la, lb, subst, gap_open, gap_extend, normalize, device
+                )))
+    with timing.GLOBAL.phase("cl_dp_fetch"):
+        for chunk, fetch in pending:
+            ops_list, _ = fetch()
             for j, i in enumerate(chunk):
-                prof_a, len_a, prof_b, len_b = pairs[i]
-                pa[j, :len_a] = prof_a[:len_a]
-                pb[j, :len_b] = prof_b[:len_b]
-                la[j], lb[j] = len_a, len_b
-            pending.append((chunk, dp.align_profiles_batch_async(
-                pa, pb, la, lb, subst, gap_open, gap_extend, normalize, device
-            )))
-    timing.GLOBAL.add("cl_dp_stage_s", time.perf_counter() - t0)
-    t0 = time.perf_counter()
-    for chunk, fetch in pending:
-        ops_list, _ = fetch()
-        for j, i in enumerate(chunk):
-            results[i] = ops_list[j]
-    timing.GLOBAL.add("cl_dp_fetch_s", time.perf_counter() - t0)
+                results[i] = ops_list[j]
     return results  # type: ignore[return-value]
 
 

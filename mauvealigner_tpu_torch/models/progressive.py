@@ -379,7 +379,8 @@ class ProgressiveMauve:
                 ml = self.find_matches(
                     genomes, sketch_mod=o.distance_sketch if sketched else 1
                 )
-        dist = coverage_distance_matrix(ml, [len(g) for g in genomes])
+        with timer.phase("distance"):
+            dist = coverage_distance_matrix(ml, [len(g) for g in genomes])
         with timer.phase("guide_tree"):
             tree = self.guide_tree(genomes, ml, dist)
         use_tree = o.tree_progressive
@@ -470,7 +471,8 @@ class ProgressiveMauve:
                     ivl, plan, gap_open=o.gap_open, gap_extend=o.gap_extend,
                     mode=o.refine_mode, subst=o.subst, device=self.device,
                 )
-        ivl.add_unaligned_intervals()
+        with timer.phase("unaligned"):
+            ivl.add_unaligned_intervals()
 
         backbone_rows = np.zeros((0, 2 * len(genomes)), np.int64)
         segments: List = []
@@ -486,13 +488,11 @@ class ProgressiveMauve:
                 segments = bb.detect_backbone(
                     ivl, params, o.island_gap_size, device=self.device
                 )
-                import time as _time
-                _t0 = _time.perf_counter()
-                raw = bb.backbone_seq_coordinates(ivl, segments, as_matrix=True)
-                rows = bb.merge_coordinate_rows(raw)
-                rows = bb.add_unique_segments(rows, ivl, [len(g) for g in genomes])
-                backbone_rows = rows
-                timer.add("bb_rows_s", _time.perf_counter() - _t0)
+                with timer.phase("bb_rows"):
+                    raw = bb.backbone_seq_coordinates(ivl, segments, as_matrix=True)
+                    rows = bb.merge_coordinate_rows(raw)
+                    rows = bb.add_unique_segments(rows, ivl, [len(g) for g in genomes])
+                    backbone_rows = rows
                 ivl = bb.apply_backbone(ivl, segments, raw_coords=raw)
         return ProgressiveResult(ivl, lcbs, ml, tree, backbone_rows, segments)
 
@@ -653,7 +653,7 @@ class ProgressiveMauve:
             if o.lca_member_scoring and dist is not None
             else None
         )
-        with timer.phase("tree_progressive"), timer.suspend():
+        with timer.phase("tree_progressive"):
             ivl, lcbs = tree_progressive_align(
                 genomes, tree, factory, translated_fn=translated,
                 profile_closure=o.profile_closure, scoring_fn=scoring,
@@ -669,7 +669,8 @@ class ProgressiveMauve:
                     ivl, plan, gap_open=o.gap_open, gap_extend=o.gap_extend,
                     mode=o.refine_mode, subst=o.subst, device=self.device,
                 )
-        ivl.add_unaligned_intervals()
+        with timer.phase("unaligned"):
+            ivl.add_unaligned_intervals()
         backbone_rows = np.zeros((0, 2 * len(genomes)), np.int64)
         segments: List = []
         if not o.skip_backbone and len(genomes) >= 2:
@@ -684,13 +685,11 @@ class ProgressiveMauve:
                 segments = bb.detect_backbone(
                     ivl, params, o.island_gap_size, device=self.device
                 )
-                import time as _time
-                _t0 = _time.perf_counter()
-                raw = bb.backbone_seq_coordinates(ivl, segments, as_matrix=True)
-                rows = bb.merge_coordinate_rows(raw)
-                rows = bb.add_unique_segments(rows, ivl, [len(g) for g in genomes])
-                backbone_rows = rows
-                timer.add("bb_rows_s", _time.perf_counter() - _t0)
+                with timer.phase("bb_rows"):
+                    raw = bb.backbone_seq_coordinates(ivl, segments, as_matrix=True)
+                    rows = bb.merge_coordinate_rows(raw)
+                    rows = bb.add_unique_segments(rows, ivl, [len(g) for g in genomes])
+                    backbone_rows = rows
                 ivl = bb.apply_backbone(ivl, segments, raw_coords=raw)
         return ProgressiveResult(ivl, lcbs, ml, tree, backbone_rows, segments)
 

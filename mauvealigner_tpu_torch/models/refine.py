@@ -151,8 +151,6 @@ def refine_intervals(
     (n_seqs - 1 DPs per window; the original formulation).  Both accept a
     replacement only when the window's sum-of-pairs score improves, so
     quality is monotone under either mode."""
-    import time
-
     from mauvealigner_tpu_torch.utils import timing
 
     genomes = ivl.genomes
@@ -161,96 +159,91 @@ def refine_intervals(
     GAP = np.int8(5)
     side_a, side_b = (None, None)
     for _ in range(rounds):
-        t0 = time.perf_counter()
         jobs: List[Tuple[int, int, int, np.ndarray]] = []  # (iv idx, a, b, col_codes)
         groups: List[List[np.ndarray]] = []
         from mauvealigner_tpu_torch.analysis.sp import interval_column_codes
 
-        for k, iv in enumerate(intervals):
-            if iv.multiplicity() < 2 or iv.n_cols == 0:
-                continue
-            if side_a is None:
-                side_a, side_b = _plan_bipartition(plan, iv.n_seqs)
-            codes = interval_column_codes(iv, genomes)
-            for a, b in _window_bounds(iv, window):
-                win = codes[:, a:b]
-                regs = []
-                for s in range(iv.n_seqs):
-                    row = win[s]
-                    regs.append(row[row < 5])  # int8 codes <= 4
-                if sum(1 for r in regs if len(r)) < 2:
+        with timing.GLOBAL.phase("rf_windows"):
+            for k, iv in enumerate(intervals):
+                if iv.multiplicity() < 2 or iv.n_cols == 0:
                     continue
-                jobs.append((k, a, b, win))
-                groups.append(regs)
-        timing.GLOBAL.add("rf_windows_s", time.perf_counter() - t0)
+                if side_a is None:
+                    side_a, side_b = _plan_bipartition(plan, iv.n_seqs)
+                codes = interval_column_codes(iv, genomes)
+                for a, b in _window_bounds(iv, window):
+                    win = codes[:, a:b]
+                    regs = []
+                    for s in range(iv.n_seqs):
+                        row = win[s]
+                        regs.append(row[row < 5])  # int8 codes <= 4
+                    if sum(1 for r in regs if len(r)) < 2:
+                        continue
+                    jobs.append((k, a, b, win))
+                    groups.append(regs)
         if not jobs:
             break
-        t0 = time.perf_counter()
         kw = {} if subst is None else {"subst": subst}
-        if mode == "split":
-            jobs, groups, new_alns, new_codes_all, rest_jobs, rest_groups = (
-                _split_realign(
-                    jobs, groups, side_a, side_b, gap_open, gap_extend, subst,
-                    device,
+        with timing.GLOBAL.phase("rf_closure"):
+            if mode == "split":
+                jobs, groups, new_alns, new_codes_all, rest_jobs, rest_groups = (
+                    _split_realign(
+                        jobs, groups, side_a, side_b, gap_open, gap_extend, subst,
+                        device,
+                    )
                 )
-            )
-            if rest_jobs:
-                # one-sided windows (e.g. subset LCBs entirely within one
-                # root clade) fall back to the full rebuild re-alignment —
-                # dropping them would leave those intervals unpolished
-                rest_alns = closure.hierarchical_align_region_groups(
-                    rest_groups, plan, gap_open=gap_open, gap_extend=gap_extend,
+                if rest_jobs:
+                    # one-sided windows (e.g. subset LCBs entirely within one
+                    # root clade) fall back to the full rebuild re-alignment —
+                    # dropping them would leave those intervals unpolished
+                    rest_alns = closure.hierarchical_align_region_groups(
+                        rest_groups, plan, gap_open=gap_open, gap_extend=gap_extend,
+                        device=device, **kw,
+                    )
+                    jobs = jobs + rest_jobs
+                    groups = groups + rest_groups
+                    new_alns = new_alns + rest_alns
+                    new_codes_all = new_codes_all + _codes_from_alns(
+                        rest_jobs, rest_alns, rest_groups
+                    )
+            else:
+                new_alns = closure.hierarchical_align_region_groups(
+                    groups, plan, gap_open=gap_open, gap_extend=gap_extend,
                     device=device, **kw,
                 )
-                jobs = jobs + rest_jobs
-                groups = groups + rest_groups
-                new_alns = new_alns + rest_alns
-                new_codes_all = new_codes_all + _codes_from_alns(
-                    rest_jobs, rest_alns, rest_groups
-                )
-            timing.GLOBAL.add("rf_closure_s", time.perf_counter() - t0)
-            t0 = time.perf_counter()
-        else:
-            new_alns = closure.hierarchical_align_region_groups(
-                groups, plan, gap_open=gap_open, gap_extend=gap_extend,
-                device=device, **kw,
-            )
-            timing.GLOBAL.add("rf_closure_s", time.perf_counter() - t0)
-            t0 = time.perf_counter()
-            new_codes_all = _codes_from_alns(jobs, new_alns, groups)
         if not jobs:
             break
         # evaluate and apply per interval; old/new windows score in one
         # grouped batch (per-window calls were refinement's host hotspot)
         from mauvealigner_tpu_torch.analysis.sp import match_and_gap_scores_batch
 
-        mats = [j[3] for j in jobs] + new_codes_all
-        m_all, g_all = match_and_gap_scores_batch(
-            mats, gap_open=gap_open, gap_extend=gap_extend
-        )
-        scores = m_all + g_all
-        timing.GLOBAL.add("rf_score_s", time.perf_counter() - t0)
-        t0 = time.perf_counter()
-        n_jobs = len(jobs)
-        by_iv: dict = {}
-        for j, ((k, a, b, win), new_aln) in enumerate(zip(jobs, new_alns)):
-            if scores[n_jobs + j] > scores[j]:
-                by_iv.setdefault(k, []).append((a, b, new_aln))
-        improved_total += sum(len(v) for v in by_iv.values())
-        for k, repls in by_iv.items():
-            iv = intervals[k]
-            repls.sort()
-            pieces = []
-            pos = 0
-            for a, b, new_aln in repls:
-                if a > pos:
-                    pieces.append(iv.aln[:, pos:a])
-                pieces.append(new_aln)
-                pos = b
-            if pos < iv.n_cols:
-                pieces.append(iv.aln[:, pos:])
-            intervals[k] = Interval(iv.starts.copy(), np.concatenate(pieces, axis=1))
-        timing.GLOBAL.add("rf_apply_s", time.perf_counter() - t0)
+        with timing.GLOBAL.phase("rf_score"):
+            if mode != "split":
+                new_codes_all = _codes_from_alns(jobs, new_alns, groups)
+            mats = [j[3] for j in jobs] + new_codes_all
+            m_all, g_all = match_and_gap_scores_batch(
+                mats, gap_open=gap_open, gap_extend=gap_extend
+            )
+            scores = m_all + g_all
+        with timing.GLOBAL.phase("rf_apply"):
+            n_jobs = len(jobs)
+            by_iv: dict = {}
+            for j, ((k, a, b, win), new_aln) in enumerate(zip(jobs, new_alns)):
+                if scores[n_jobs + j] > scores[j]:
+                    by_iv.setdefault(k, []).append((a, b, new_aln))
+            improved_total += sum(len(v) for v in by_iv.values())
+            for k, repls in by_iv.items():
+                iv = intervals[k]
+                repls.sort()
+                pieces = []
+                pos = 0
+                for a, b, new_aln in repls:
+                    if a > pos:
+                        pieces.append(iv.aln[:, pos:a])
+                    pieces.append(new_aln)
+                    pos = b
+                if pos < iv.n_cols:
+                    pieces.append(iv.aln[:, pos:])
+                intervals[k] = Interval(iv.starts.copy(), np.concatenate(pieces, axis=1))
     return (
         IntervalList(
             genomes=genomes, intervals=intervals, seq_filenames=list(ivl.seq_filenames)

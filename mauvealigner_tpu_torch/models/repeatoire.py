@@ -35,7 +35,6 @@ from __future__ import annotations
 import dataclasses
 import math
 import re
-import time
 from typing import List, Optional, Sequence, TextIO, Tuple, Union
 
 import numpy as np
@@ -371,18 +370,17 @@ class Repeatoire:
             ]
             timing.GLOBAL.add("rp_ext_waves", 1.0)
             timing.GLOBAL.add("rp_ext_jobs", float(len(jobs)))
-            _t0 = time.perf_counter()
-            # balanced merge tree: ceil(log2 arity) batched rounds per wave
-            # instead of arity-1
-            got = closure.hierarchical_align_region_groups(
-                padded,
-                closure.balanced_plan(arity),
-                gap_open=o.gap_open,
-                gap_extend=o.gap_extend,
-                max_len=4096,
-                device=self.device,
-            )
-            timing.GLOBAL.add("rp_ext_dp_s", time.perf_counter() - _t0)
+            with timing.GLOBAL.phase("rp_ext_dp"):
+                # balanced merge tree: ceil(log2 arity) batched rounds per wave
+                # instead of arity-1
+                got = closure.hierarchical_align_region_groups(
+                    padded,
+                    closure.balanced_plan(arity),
+                    gap_open=o.gap_open,
+                    gap_extend=o.gap_extend,
+                    max_len=4096,
+                    device=self.device,
+                )
             alns = [aln[: len(j[3])] for j, aln in zip(jobs, got)]
             homs = self._homology_columns_batch(
                 genome, [j[3] for j in jobs], alns
@@ -526,17 +524,16 @@ class Repeatoire:
             shapes.append(syms.shape)
             for c in range(syms.shape[0]):
                 streams.append(syms[c])
-        _t0 = time.perf_counter()
-        decoded = hmm_ops.bucketed_decode(
-            streams,
-            params.log_trans(),
-            np.log([0.9, 0.1]),
-            mode="threshold0",
-            threshold=self.options.posterior_threshold,
-            emit_table=params.log_emit_table(),
-            device=self.device,
-        )
-        timing.GLOBAL.add("rp_ext_hmm_s", time.perf_counter() - _t0)
+        with timing.GLOBAL.phase("rp_ext_hmm"):
+            decoded = hmm_ops.bucketed_decode(
+                streams,
+                params.log_trans(),
+                np.log([0.9, 0.1]),
+                mode="threshold0",
+                threshold=self.options.posterior_threshold,
+                emit_table=params.log_emit_table(),
+                device=self.device,
+            )
         out: List[np.ndarray] = []
         pos = 0
         for k, T in shapes:
@@ -928,27 +925,23 @@ class Repeatoire:
         that already ran the seed phase (e.g. the CLI's --seeds output) do
         not pay for it twice."""
         o = self.options
-        _t0 = time.perf_counter()
-        if matches is not None:
-            ml, seed_counts = matches
-        else:
-            ml = self.seed_matches(genome)
-            seed_counts = None
-            if o.chain:
-                ml, seed_counts = self.chain_seed_matches(ml, genome)
-        timing.GLOBAL.add("rp_seed_chain_s", time.perf_counter() - _t0)
-        _t0 = time.perf_counter()
-        fams = self.build_families(genome, ml, seed_counts)
-        timing.GLOBAL.add("rp_build_s", time.perf_counter() - _t0)
-        _t0 = time.perf_counter()
-        if fams:
-            for f, sc in zip(fams, self._sp_score_batch(genome, fams)):
-                f.score = float(sc)
-        timing.GLOBAL.add("rp_score_s", time.perf_counter() - _t0)
-        _t0 = time.perf_counter()
-        if not o.allow_redundant:
-            fams = self._remove_redundancy(genome, fams)
-        timing.GLOBAL.add("rp_redundancy_s", time.perf_counter() - _t0)
+        with timing.GLOBAL.phase("rp_seed_chain"):
+            if matches is not None:
+                ml, seed_counts = matches
+            else:
+                ml = self.seed_matches(genome)
+                seed_counts = None
+                if o.chain:
+                    ml, seed_counts = self.chain_seed_matches(ml, genome)
+        with timing.GLOBAL.phase("rp_build"):
+            fams = self.build_families(genome, ml, seed_counts)
+        with timing.GLOBAL.phase("rp_score"):
+            if fams:
+                for f, sc in zip(fams, self._sp_score_batch(genome, fams)):
+                    f.score = float(sc)
+        with timing.GLOBAL.phase("rp_redundancy"):
+            if not o.allow_redundant:
+                fams = self._remove_redundancy(genome, fams)
         # final filter chain (src/repeatoire.cpp:2636-2653): min length,
         # --onlyextended, SP score strictly above --sp, tandem filter
         out = []

@@ -261,69 +261,60 @@ def merge_profiles(
     genomes (rep coordinates) that the gapped CLOSURE scores instead of the
     consensus reps — the LCA member-aware re-scoring for the divergence
     tail; anchoring still sees the consensus reps."""
-    import time
-
     from mauvealigner_tpu_torch.utils import timing
 
-    t0 = time.perf_counter()
-    aligner = aligner_factory()
-    if scoring_fn is not None:
-        t1 = time.perf_counter()
-        stand_ins = scoring_fn(a, b)
-        if stand_ins is not None:
-            aligner.options.closure_genomes = list(stand_ins)
-        timing.GLOBAL.add("tp_scoring_rep_s", time.perf_counter() - t1)
-    if translated_fn is None:
-        extra = None
-    else:
-        # deferred: the aligner calls this AFTER its own anchor search, so
-        # the translated pass can gate on the found coverage
-        def extra(found_ml, _a=a, _b=b):
-            t1 = time.perf_counter()
-            got = translated_fn(_a, _b, found_ml)
-            timing.GLOBAL.add("tp_translate_s", time.perf_counter() - t1)
-            return got
+    with timing.GLOBAL.phase("pair_align"):
+        aligner = aligner_factory()
+        if scoring_fn is not None:
+            with timing.GLOBAL.phase("scoring_rep"):
+                stand_ins = scoring_fn(a, b)
+                if stand_ins is not None:
+                    aligner.options.closure_genomes = list(stand_ins)
+        if translated_fn is None:
+            extra = None
+        else:
+            # deferred: the aligner calls this AFTER its own anchor search, so
+            # the translated pass can gate on the found coverage
+            def extra(found_ml, _a=a, _b=b):
+                with timing.GLOBAL.phase("translate"):
+                    return translated_fn(_a, _b, found_ml)
 
-    res = aligner.align(
-        [a.rep, b.rep],
-        extra_matches=extra,
-        seq_profiles=[a.counts, b.counts] if profile_closure else None,
-    )
-    timing.GLOBAL.add("tp_pair_align_s", time.perf_counter() - t0)
-    t0 = time.perf_counter()
-    ivl = res.interval_list
-    ivl.add_unaligned_intervals()
-    timing.GLOBAL.add("tp_unaligned_s", time.perf_counter() - t0)
-    t0 = time.perf_counter()
-    pos_a, pos_b = _node_alignment_columns(ivl)
-    colmaps: Dict[int, np.ndarray] = {}
-    for m in a.members:
-        colmaps[m] = _compose(a.colmaps[m], pos_a)
-    for m in b.members:
-        colmaps[m] = _compose(b.colmaps[m], pos_b)
-    prof = NodeProfile(a.members + b.members, None, colmaps)
-    timing.GLOBAL.add("tp_compose_s", time.perf_counter() - t0)
-    t0 = time.perf_counter()
-    # additive count composition: votes identical to re-deriving from every
-    # member (one-hot sums), argmax ties resolve toward the lowest code
-    counts = _compose_counts(a.counts, pos_a) + _compose_counts(b.counts, pos_b)
-    if prune_private and len(prof.members) >= 3:
-        keep = _private_column_keep_mask(counts, prune_private_max_run)
-        if not keep.all():
-            kc = np.nonzero(keep)[0]
-            for m in prof.members:
-                colmaps[m] = colmaps[m][kc]
-            counts = counts[kc]
-    votes = counts[:, :4]
-    rep_codes = votes.argmax(axis=1).astype(np.uint8)
-    rep_codes[votes.sum(axis=1) == 0] = CODE_N
-    # direct construction: from_codes would round-trip int64 -> ASCII ->
-    # codes (three full passes over a ~5M-column rep per merge)
-    from mauvealigner_tpu_torch.genome.sequence import decode_codes
+        res = aligner.align(
+            [a.rep, b.rep],
+            extra_matches=extra,
+            seq_profiles=[a.counts, b.counts] if profile_closure else None,
+        )
+    with timing.GLOBAL.phase("unaligned"):
+        ivl = res.interval_list
+        ivl.add_unaligned_intervals()
+    with timing.GLOBAL.phase("compose"):
+        pos_a, pos_b = _node_alignment_columns(ivl)
+        colmaps: Dict[int, np.ndarray] = {}
+        for m in a.members:
+            colmaps[m] = _compose(a.colmaps[m], pos_a)
+        for m in b.members:
+            colmaps[m] = _compose(b.colmaps[m], pos_b)
+        prof = NodeProfile(a.members + b.members, None, colmaps)
+    with timing.GLOBAL.phase("consensus"):
+        # additive count composition: votes identical to re-deriving from every
+        # member (one-hot sums), argmax ties resolve toward the lowest code
+        counts = _compose_counts(a.counts, pos_a) + _compose_counts(b.counts, pos_b)
+        if prune_private and len(prof.members) >= 3:
+            keep = _private_column_keep_mask(counts, prune_private_max_run)
+            if not keep.all():
+                kc = np.nonzero(keep)[0]
+                for m in prof.members:
+                    colmaps[m] = colmaps[m][kc]
+                counts = counts[kc]
+        votes = counts[:, :4]
+        rep_codes = votes.argmax(axis=1).astype(np.uint8)
+        rep_codes[votes.sum(axis=1) == 0] = CODE_N
+        # direct construction: from_codes would round-trip int64 -> ASCII ->
+        # codes (three full passes over a ~5M-column rep per merge)
+        from mauvealigner_tpu_torch.genome.sequence import decode_codes
 
-    prof.rep = Genome(decode_codes(rep_codes), name=node_name)
-    prof.counts = counts
-    timing.GLOBAL.add("tp_consensus_s", time.perf_counter() - t0)
+        prof.rep = Genome(decode_codes(rep_codes), name=node_name)
+        prof.counts = counts
     return prof
 
 
@@ -546,23 +537,27 @@ def merge_plan(genomes, tree) -> Tuple[List[Tuple[str, object, object]], object]
 
 
 def _in_callers_context(fn):
-    """fn wrapped to run under the calling thread's ambient mesh and current
-    CUDA device.  Both are per thread (parallel/context.py, the CUDA
-    runtime): a pool worker would otherwise drop a mesh the caller entered
-    with use_mesh, running its batches unsplit, and launch on device 0."""
+    """fn wrapped to run under the calling thread's ambient mesh, current
+    CUDA device and open spans.  All three are per thread
+    (parallel/context.py, the CUDA runtime, utils/timing.py): a pool worker
+    would otherwise drop a mesh the caller entered with use_mesh, running
+    its batches unsplit, launch on device 0, and record its spans at the
+    top level."""
     import contextlib
 
     import torch
 
     from mauvealigner_tpu_torch.parallel.context import active_mesh, use_mesh
+    from mauvealigner_tpu_torch.utils import timing
 
     mesh = active_mesh()
     cuda_dev = torch.cuda.current_device() if torch.cuda.is_initialized() else None
+    path = timing.GLOBAL.path()
 
     def run(*args):
         dev_ctx = (torch.cuda.device(cuda_dev) if cuda_dev is not None
                    else contextlib.nullcontext())
-        with use_mesh(mesh), dev_ctx:
+        with use_mesh(mesh), dev_ctx, timing.GLOBAL.under(path):
             return fn(*args)
 
     return run
@@ -589,10 +584,9 @@ def tree_progressive_align(
     concurrently on a thread pool of max_workers threads (None reads
     MAUVE_TP_WORKERS, default 1: the serial post-order).  Each merge is a
     pure function of its two child profiles, so results are identical to
-    the serial order.  Workers run under the caller's ambient mesh and CUDA
-    device, and launch on their thread's current stream."""
+    the serial order.  Workers run under the caller's ambient mesh, CUDA
+    device and span path, and launch on their thread's current stream."""
     import os
-    import time
 
     from mauvealigner_tpu_torch.utils import timing
 
@@ -617,10 +611,9 @@ def tree_progressive_align(
     else:
         import concurrent.futures as cf
 
-        merge = _in_callers_context(merge_profiles)
-        t0 = time.perf_counter()
         remaining = set(range(len(tasks)))
-        with cf.ThreadPoolExecutor(max_workers=max_workers) as ex:
+        with timing.GLOBAL.phase("pool"), cf.ThreadPoolExecutor(max_workers=max_workers) as ex:
+            merge = _in_callers_context(merge_profiles)
             pending: Dict[object, int] = {}
             while remaining or pending:
                 for t in sorted(remaining):
@@ -642,11 +635,8 @@ def tree_progressive_align(
                 for fut in done:
                     t = pending.pop(fut)
                     profiles[("task", t)] = fut.result()  # re-raises errors
-        timing.GLOBAL.add("tp_ladder_wall_s", time.perf_counter() - t0)
 
     root = profiles[root_ref]
-    t0 = time.perf_counter()
-    ivl = emit_intervals(genomes, root)
-    out = ivl, lcbs_from_intervals(ivl)
-    timing.GLOBAL.add("tp_emit_s", time.perf_counter() - t0)
-    return out
+    with timing.GLOBAL.phase("emit"):
+        ivl = emit_intervals(genomes, root)
+        return ivl, lcbs_from_intervals(ivl)

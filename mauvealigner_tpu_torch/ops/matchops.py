@@ -34,7 +34,6 @@ after one device sort.
 from __future__ import annotations
 
 import dataclasses
-import time
 import warnings
 from typing import Optional, Sequence, Tuple
 
@@ -359,9 +358,8 @@ def find_multi_mums_device(
         min_multi, seed_length,
     )
     if extend and len(ml):
-        t0 = time.perf_counter()
-        ml = extend_matches_maximal(ml, [g.codes for g in genomes])
-        timing.GLOBAL.add("k2_extend_s", time.perf_counter() - t0)
+        with timing.GLOBAL.phase("k2_extend"):
+            ml = extend_matches_maximal(ml, [g.codes for g in genomes])
     if nway:
         ml = ml.multiplicity_filter(n_seqs)
     return ml
@@ -372,14 +370,12 @@ def _candidates_with_retry(
 ) -> MatchList:
     """Run device_mum_candidates, doubling cap on overflow, and decode."""
     while True:
-        t0 = time.perf_counter()
-        table = device_mum_candidates(keys, seq_ids, pos, mask, n_seqs, cap, min_multi)
-        timing.GLOBAL.add("k2_dispatch_s", time.perf_counter() - t0)
-        t0 = time.perf_counter()
-        n_runs = int(table[0, 0])
-        if n_runs <= cap:
-            head = table[: n_runs + 1].cpu().numpy()
-            timing.GLOBAL.add("k2_fetch_s", time.perf_counter() - t0)
+        with timing.GLOBAL.phase("k2_dispatch"):
+            table = device_mum_candidates(keys, seq_ids, pos, mask, n_seqs, cap, min_multi)
+        with timing.GLOBAL.phase("k2_fetch"):
+            n_runs = int(table[0, 0])
+            head = table[: n_runs + 1].cpu().numpy() if n_runs <= cap else None
+        if head is not None:
             break
         # capacity overflow (repeat-dense input): raise to the covering power
         # of two and re-run — truncating here would silently drop anchors
@@ -926,16 +922,14 @@ def find_gap_mums_batched(
     timing.GLOBAL.add("k2_sort_entries", float(N))
     mask = torch.ones(n, dtype=torch.int32, device=keys.device)
     cap = max(1 << 14, N >> 3)
-    t0 = time.perf_counter()
-    ml = _candidates_with_retry(keys, seq_ids, pos, mask, n, cap, 2, seed.length)
-    timing.GLOBAL.add("recursion_kernel_s", time.perf_counter() - t0)
+    with timing.GLOBAL.phase("recursion_kernel"):
+        ml = _candidates_with_retry(keys, seq_ids, pos, mask, n, cap, 2, seed.length)
     if len(ml) == 0:
         return np.zeros(0, np.int64), MatchList.empty(n)
     if extend:
-        t0 = time.perf_counter()
-        flat_host = _flat_codes_host(genomes, rows, fs)
-        ml = extend_matches_maximal(ml, [flat_host] * n)
-        timing.GLOBAL.add("recursion_extend_s", time.perf_counter() - t0)
+        with timing.GLOBAL.phase("recursion_extend"):
+            flat_host = _flat_codes_host(genomes, rows, fs)
+            ml = extend_matches_maximal(ml, [flat_host] * n)
     # map flat coordinates back to (gap, genome coordinates)
     starts = ml.starts
     lengths = ml.lengths

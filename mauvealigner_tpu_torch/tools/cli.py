@@ -193,17 +193,21 @@ def mauve_aligner_cli(argv: List[str]) -> int:
     p.add_argument("--debug", action="store_true",
                    help="perform internal consistency checks (very slow)")
     p.add_argument("--profile", action="store_true",
-                   help="print per-phase wall-clock and GCUPS to stderr")
+                   help="print the span tree (path, total and self seconds, "
+                   "calls) and the work counters to stderr")
     a = p.parse_args(argv)
 
     from mauvealigner_tpu_torch.core import mln
     from mauvealigner_tpu_torch.models.aligner import AlignerOptions, MauveAligner
     from mauvealigner_tpu_torch.seeds import CODING_SEED, SOLID_SEED
+    from mauvealigner_tpu_torch.utils import timing
 
+    timer = timing.GLOBAL
     rank = {"solid": SOLID_SEED, "coding": CODING_SEED, "spaced": 0, "spaced1": 1, "spaced2": 2}[
         a.seed_type
     ]
-    genomes = load_genomes(a.seqs)
+    with timer.phase("load"):
+        genomes = load_genomes(a.seqs)
     if (a.island_size != 0) != (a.island_output != ""):
         p.error("Both --island-output and --island-size must be specified")
     mesh = None
@@ -324,18 +328,16 @@ def mauve_aligner_cli(argv: List[str]) -> int:
             ivl.write_xmfa(a.output_alignment)
         return 0
 
-    from mauvealigner_tpu_torch.utils import timing
-
     # the phases of MauveAligner.align, timed for --profile
-    with timing.GLOBAL.phase("anchoring"):
+    with timer.phase("anchoring"):
         ml = _find_matches()
-    with timing.GLOBAL.phase("lcb_determination"):
+    with timer.phase("lcb_determination"):
         ml, lcbs = aligner.determine_lcbs(genomes, ml)
     if opts.lcb_extension:
-        with timing.GLOBAL.phase("lcb_extension"):
+        with timer.phase("lcb_extension"):
             ml, lcbs = aligner.extend_lcbs(genomes, ml, lcbs)
     if opts.recursive:
-        with timing.GLOBAL.phase("recursive_anchoring"):
+        with timer.phase("recursive_anchoring"):
             ml, lcbs = aligner.recursive_anchor(genomes, ml, lcbs)
     if a.realign_lcb:
         from mauvealigner_tpu_torch.models import resume
@@ -347,44 +349,47 @@ def mauve_aligner_cli(argv: List[str]) -> int:
         return 0
     from mauvealigner_tpu_torch.models.aligner import AlignmentResult
 
-    with timing.GLOBAL.phase("gapped_closure"):
+    with timer.phase("gapped_closure"):
         res = AlignmentResult(aligner.build_intervals(genomes, ml, lcbs), lcbs, ml)
-    with timing.GLOBAL.phase("outputs"):
-        with open_out(a.output) as fh:
+    with timer.phase("outputs"):
+        with timer.phase("mln"), open_out(a.output) as fh:
             mln.write_match_list(res.mums, fh, a.seqs, [len(g) for g in genomes])
         if a.output_alignment:
             # always XMFA (WriteStandardAlignment, src/mauveAligner.cpp:746-760);
             # --alignment-output-format applies to the per-LCB dir output only
             res.interval_list.seq_filenames = list(a.seqs)
-            res.interval_list.write_xmfa(a.output_alignment)
+            with timer.phase("xmfa"):
+                res.interval_list.write_xmfa(a.output_alignment)
         if a.id_matrix:
             from mauvealigner_tpu_torch.analysis.distance import identity_matrix, write_matrix
 
-            write_matrix(identity_matrix(res.interval_list, genomes), a.id_matrix)
+            with timer.phase("id_matrix"):
+                write_matrix(identity_matrix(res.interval_list, genomes), a.id_matrix)
         if a.alignment_output_dir:
             from mauvealigner_tpu_torch.tools.convert import write_clustal, write_phylip
 
-            os.makedirs(a.alignment_output_dir, exist_ok=True)
-            fmt = a.alignment_output_format.lower()
-            for li, iv in enumerate(res.interval_list.intervals):
-                sub = IntervalList(genomes=list(genomes), intervals=[iv],
-                                   seq_filenames=list(a.seqs))
-                path = os.path.join(a.alignment_output_dir, f"lcb_{li}.txt")
-                if fmt == "clustal":
-                    with open(path, "w") as fh:
-                        write_clustal(sub, fh)
-                elif fmt == "phylip":
-                    with open(path, "w") as fh:
-                        write_phylip(sub, fh)
-                elif fmt == "mfa":
-                    with open(path, "w") as fh:
-                        for s in range(iv.n_seqs):
-                            if iv.starts[s] == 0:
-                                continue
-                            write_fasta_row(fh, sub.filenames()[s] or f"seq{s}",
-                                            iv.aligned_text(genomes, s))
-                else:
-                    sub.write_xmfa(path)
+            with timer.phase("lcb_dir"):
+                os.makedirs(a.alignment_output_dir, exist_ok=True)
+                fmt = a.alignment_output_format.lower()
+                for li, iv in enumerate(res.interval_list.intervals):
+                    sub = IntervalList(genomes=list(genomes), intervals=[iv],
+                                       seq_filenames=list(a.seqs))
+                    path = os.path.join(a.alignment_output_dir, f"lcb_{li}.txt")
+                    if fmt == "clustal":
+                        with open(path, "w") as fh:
+                            write_clustal(sub, fh)
+                    elif fmt == "phylip":
+                        with open(path, "w") as fh:
+                            write_phylip(sub, fh)
+                    elif fmt == "mfa":
+                        with open(path, "w") as fh:
+                            for s in range(iv.n_seqs):
+                                if iv.starts[s] == 0:
+                                    continue
+                                write_fasta_row(fh, sub.filenames()[s] or f"seq{s}",
+                                                iv.aligned_text(genomes, s))
+                    else:
+                        sub.write_xmfa(path)
         if a.permutation_matrix_output:
             from mauvealigner_tpu_torch.tools.convert import lcb_signed_permutations
 
@@ -394,7 +399,7 @@ def mauve_aligner_cli(argv: List[str]) -> int:
                 # (src/mauveAligner.cpp:682-685)
                 min_w = a.permutation_matrix_min_weight * len(genomes)
                 perm_lcbs = [l for l in perm_lcbs if l.weight >= min_w]
-            with open(a.permutation_matrix_output, "w") as fh:
+            with timer.phase("permutations"), open(a.permutation_matrix_output, "w") as fh:
                 for perm in lcb_signed_permutations(perm_lcbs):
                     fh.write("\t".join(str(v) for v in perm) + "\n")
         if a.island_output and a.island_size:
@@ -403,7 +408,7 @@ def mauve_aligner_cli(argv: List[str]) -> int:
                 simple_find_islands,
             )
 
-            with open(a.island_output, "w") as fh:
+            with timer.phase("islands"), open(a.island_output, "w") as fh:
                 for isl in simple_find_islands(res.interval_list, a.island_size):
                     fh.write(
                         f"{isl.seq_i}\t{isl.left_i}\t{isl.right_i}\t"
@@ -416,12 +421,13 @@ def mauve_aligner_cli(argv: List[str]) -> int:
         if a.backbone_output and a.backbone_size:
             from mauvealigner_tpu_torch.analysis.islands import simple_find_backbone, write_backbone
 
-            segs = simple_find_backbone(
-                res.interval_list, a.backbone_size, a.max_backbone_gap or a.backbone_size
-            )
-            write_backbone(segs, a.backbone_output, len(genomes))
+            with timer.phase("backbone"):
+                segs = simple_find_backbone(
+                    res.interval_list, a.backbone_size, a.max_backbone_gap or a.backbone_size
+                )
+                write_backbone(segs, a.backbone_output, len(genomes))
     if a.profile:
-        sys.stderr.write(timing.GLOBAL.report())
+        sys.stderr.write(timer.report())
     return 0
 
 
@@ -538,12 +544,16 @@ def progressive_mauve_cli(argv: List[str]) -> int:
     p.add_argument("--debug", action="store_true",
                    help="perform internal consistency checks (very slow)")
     p.add_argument("--profile", action="store_true",
-                   help="print per-phase wall-clock and GCUPS to stderr")
+                   help="print the span tree (path, total and self seconds, "
+                   "calls) and the work counters to stderr")
     a = p.parse_args(argv)
 
     from mauvealigner_tpu_torch.core import mln
     from mauvealigner_tpu_torch.core.sml import register_temp_path
     from mauvealigner_tpu_torch.models.progressive import ProgressiveMauve, ProgressiveOptions
+    from mauvealigner_tpu_torch.utils import timing
+
+    timer = timing.GLOBAL
 
     for path in (a.scratch_path_1, a.scratch_path_2):
         if path:
@@ -561,7 +571,8 @@ def progressive_mauve_cli(argv: List[str]) -> int:
         applied = apply_backbone(ivl, segs)
         applied.write_xmfa(a.output)
         return 0
-    genomes = load_genomes(a.seqs)
+    with timer.phase("load"):
+        genomes = load_genomes(a.seqs)
     opts = ProgressiveOptions(
         tree_progressive={"auto": None, "0": False, "1": True}[a.tree_progressive],
         seed_weight=a.seed_weight,
@@ -628,15 +639,17 @@ def progressive_mauve_cli(argv: List[str]) -> int:
 
     bb_name = a.backbone_output or (a.output + ".backbone")
     cols_name = a.bbcols_output or (a.output + ".bbcols")
-    if len(res.backbone_rows):
-        bbmod.write_backbone_seq_file(res.backbone_rows, bb_name, len(genomes))
-        bbmod.write_backbone_cols_file(res.backbone_segments, cols_name)
-        res.interval_list.backbone_filename = cols_name
-    res.interval_list.write_xmfa(a.output)
+    with timer.phase("outputs"):
+        if len(res.backbone_rows):
+            with timer.phase("backbone"):
+                bbmod.write_backbone_seq_file(res.backbone_rows, bb_name, len(genomes))
+            with timer.phase("bbcols"):
+                bbmod.write_backbone_cols_file(res.backbone_segments, cols_name)
+            res.interval_list.backbone_filename = cols_name
+        with timer.phase("xmfa"):
+            res.interval_list.write_xmfa(a.output)
     if a.profile:
-        from mauvealigner_tpu_torch.utils import timing
-
-        sys.stderr.write(timing.GLOBAL.report())
+        sys.stderr.write(timer.report())
     return 0
 
 
@@ -2121,21 +2134,27 @@ def sort_contigs_cli(argv: List[str]) -> int:
     from mauvealigner_tpu_torch.genome import write_fasta
     from mauvealigner_tpu_torch.models.aligner import AlignerOptions, MauveAligner
     from mauvealigner_tpu_torch.tools.manipulate import contig_placements_from_lcbs, sort_contigs
+    from mauvealigner_tpu_torch.utils import timing
 
+    timer = timing.GLOBAL
     aligner = MauveAligner(
         AlignerOptions(seed_size=a.seed_size, gapped=False, recursive=False,
                        device=a.device)
     )
-    ref = load_genome(a.reference)
-    draft = load_genome(a.draft)
-    ml = aligner.find_mums([ref, draft])
-    _, lcbs = aligner.determine_lcbs([ref, draft], ml)
-    placements = contig_placements_from_lcbs(draft, lcbs, draft_seq_index=1)
-    reordered, log = sort_contigs(draft, placements)
-    out = a.output or (a.draft + ".reordered")
-    write_fasta(reordered, out)
-    for name, strand in log:
-        print(f"{name}\t{'+' if strand >= 0 else '-'}{'(unplaced)' if strand == 0 else ''}")
+    with timer.phase("load"):
+        ref = load_genome(a.reference)
+        draft = load_genome(a.draft)
+    with timer.phase("anchoring"):
+        ml = aligner.find_mums([ref, draft])
+    with timer.phase("lcb_determination"):
+        _, lcbs = aligner.determine_lcbs([ref, draft], ml)
+    with timer.phase("placement"):
+        placements = contig_placements_from_lcbs(draft, lcbs, draft_seq_index=1)
+        reordered, log = sort_contigs(draft, placements)
+    with timer.phase("outputs"):
+        write_fasta(reordered, a.output or (a.draft + ".reordered"))
+        for name, strand in log:
+            print(f"{name}\t{'+' if strand >= 0 else '-'}{'(unplaced)' if strand == 0 else ''}")
     return 0
 
 

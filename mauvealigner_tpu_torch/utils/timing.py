@@ -1,9 +1,21 @@
-"""Per-phase wall-clock and throughput counters.
+"""The port's host spans and work counters.
 
 The reference's observability is a progress ticker (LogProgress,
-src/mauveAligner.cpp:482,532); here profiling is first-class: every pipeline
-phase records wall-clock and work counters, and DP phases report GCUPS
-(giga cell updates per second).
+src/mauveAligner.cpp:482,532); here every pipeline phase is a span.
+``PhaseTimer.phase(name)`` opens one: its path is the names of the spans
+open on the calling thread, outermost first, joined by "/" (for example
+``tree_progressive/pair_align/anchoring/k2_extend``).  ``phases[path]``
+totals its seconds and ``calls[path]`` counts its entries; ``counters``
+holds counts of work only (bases, sort entries, DP cells), never seconds.
+
+A pool worker's spans nest under the span that submitted its task
+(``path()`` in the caller, ``under(path)`` in the worker).  Such siblings
+run concurrently, so their seconds may sum to more than their parent's.
+
+While a torch profiler records, each span also opens the profiler range
+``phase:<path>``, stamped on the clock of the device work launched inside
+it; with none recording, no range is opened (a range costs about 30 times
+the check even then).
 """
 
 from __future__ import annotations
@@ -12,102 +24,101 @@ import contextlib
 import threading
 import time
 from collections import OrderedDict
-from typing import Dict, Optional
+from typing import Dict, Sequence, Tuple
+
+import torch
 
 
 class PhaseTimer:
     def __init__(self) -> None:
+        # keyed by path, in the order the spans first opened (a parent
+        # before its children)
         self.phases: "OrderedDict[str, float]" = OrderedDict()
+        self.calls: Dict[str, int] = {}
         self.counters: Dict[str, float] = {}
-        self._suspended = 0
-        # counters accumulate from concurrent node-merge threads
+        # spans close and counters accumulate on concurrent pool threads
         self._lock = threading.Lock()
+        self._local = threading.local()
+
+    def _stack(self) -> list:
+        stack = getattr(self._local, "stack", None)
+        if stack is None:
+            stack = self._local.stack = []
+        return stack
+
+    def path(self) -> Tuple[str, ...]:
+        """The names of the spans open on this thread, outermost first."""
+        return tuple(self._stack())
+
+    @contextlib.contextmanager
+    def under(self, path: Sequence[str]):
+        """Open the body's spans under `path` (another thread's path())."""
+        saved = getattr(self._local, "stack", None)
+        self._local.stack = list(path)
+        try:
+            yield
+        finally:
+            self._local.stack = saved
 
     @contextlib.contextmanager
     def phase(self, name: str):
-        if self._suspended:  # nested pipeline (e.g. per-node merges): the
-            yield            # enclosing phase already owns this wall-clock
-            return
+        stack = self._stack()
+        stack.append(name)
+        path = "/".join(stack)
+        with self._lock:
+            self.phases.setdefault(path, 0.0)
         t0 = time.perf_counter()
         try:
-            yield
+            if torch._C._autograd._profiler_enabled():
+                with torch.profiler.record_function(f"phase:{path}"):
+                    yield
+            else:
+                yield
         finally:
-            self.phases[name] = self.phases.get(name, 0.0) + time.perf_counter() - t0
-
-    @contextlib.contextmanager
-    def suspend(self):
-        """Stop recording phases (counters still accumulate) — used by
-        composite phases whose inner pipelines would double-count."""
-        self._suspended += 1
-        try:
-            yield
-        finally:
-            self._suspended -= 1
+            dt = time.perf_counter() - t0
+            stack.pop()
+            with self._lock:
+                self.phases[path] = self.phases.get(path, 0.0) + dt
+                self.calls[path] = self.calls.get(path, 0) + 1
 
     def add(self, counter: str, value: float) -> None:
         with self._lock:
             self.counters[counter] = self.counters.get(counter, 0.0) + value
 
     def reset(self) -> None:
-        self.phases.clear()
-        self.counters.clear()
+        with self._lock:
+            self.phases.clear()
+            self.calls.clear()
+            self.counters.clear()
 
-    def gcups(self, phase: str, cells_counter: str) -> Optional[float]:
-        t = self.phases.get(phase)
-        c = self.counters.get(cells_counter)
-        if not t or c is None:
-            return None
-        return c / t / 1e9
-
-    def throughput(self, phase: str, counter: str) -> Optional[float]:
-        """counter units per second of `phase` wall-clock (None if missing)."""
-        t = self.phases.get(phase)
-        c = self.counters.get(counter)
-        if not t or c is None:
-            return None
-        return c / t
+    def self_seconds(self, path: str) -> float:
+        """A span's seconds less those of its direct children."""
+        depth = path.count("/") + 1
+        return self.phases[path] - sum(
+            t for p, t in self.phases.items()
+            if p.startswith(path + "/") and p.count("/") == depth
+        )
 
     def report(self) -> str:
-        total = sum(self.phases.values())
-        lines = [f"{'phase':<24}{'seconds':>10}{'share':>8}"]
-        for name, t in self.phases.items():
-            lines.append(f"{name:<24}{t:>10.3f}{t / total if total else 0:>8.1%}")
-        lines.append(f"{'total':<24}{total:>10.3f}")
+        """The span tree, each span under its parent in the order they first
+        opened, then the counters."""
+        first = {p: i for i, p in enumerate(self.phases)}
+
+        def tree_order(path):
+            names = path.split("/")
+            return [first.get("/".join(names[:k]), -1) for k in range(1, len(names) + 1)]
+
+        w = max([len(p) for p in self.phases] + [len("top-level spans")]) + 2
+        lines = [f"{'span':<{w}}{'total s':>10}{'self s':>10}{'calls':>8}"]
+        for path in sorted(self.phases, key=tree_order):
+            lines.append(f"{path:<{w}}{self.phases[path]:>10.3f}"
+                         f"{self.self_seconds(path):>10.3f}{self.calls.get(path, 0):>8d}")
+        top = sum(t for p, t in self.phases.items() if "/" not in p)
+        lines.append(f"{'top-level spans':<{w}}{top:>10.3f}")
+        lines.append("self = total less the children's totals; children run on "
+                     "pool threads at once may sum to more than their parent")
         for c, v in sorted(self.counters.items()):
-            # sub-second timing counters need the decimals (an 8-merge
-            # ladder's per-phase splits truncated to 0s were unreadable)
-            if c.endswith("_s") and v < 100:
-                lines.append(f"{c}: {v:,.2f}")
-            else:
-                lines.append(f"{c}: {v:,.0f}")
-        # K1/K2 throughputs: the counters accumulate from EVERY phase that
-        # builds mer lists or runs the candidate kernel (initial anchoring,
-        # recursion, LCB extension, subset recovery, tree-progressive node
-        # merges), so divide by the sum of those phases' wall-clock
-        anchor_time = sum(
-            self.phases.get(p, 0.0)
-            for p in ("anchoring", "recursive_anchoring", "lcb_extension",
-                      "subset_lcbs", "tree_progressive")
-        )
-        bases = self.counters.get("k1_bases")
-        if anchor_time and bases:
-            lines.append(
-                f"anchor-phase bases processed: {bases/anchor_time/1e6:.1f} Mbases/s"
-            )
-        entries = self.counters.get("k2_sort_entries")
-        if anchor_time and entries:
-            lines.append(
-                f"anchor-phase sort entries: {entries/anchor_time/1e6:.1f} M/s"
-            )
-        # gapped DP throughput across all DP-driving phases
-        dp_time = sum(
-            self.phases.get(p, 0.0)
-            for p in ("gapped_closure", "boundary_extension", "refinement",
-                      "subset_lcbs", "extension")
-        )
-        c = self.counters.get("dp_cells")
-        if dp_time and c:
-            lines.append(f"gapped DP throughput: {c / dp_time / 1e9:.3f} GCUPS")
+            lines.append(f"{c}: {v:,.0f}")
         return "\n".join(lines) + "\n"
 
 

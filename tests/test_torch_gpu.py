@@ -316,7 +316,7 @@ def test_pooled_ladder_gpu_launches_equal_serial(rng, cuda_device, monkeypatch):
         buf = io.StringIO()
         res.interval_list.write_xmfa(buf)
         out[workers] = (buf.getvalue(), dict(gotoh_cuda.LAUNCHES),
-                        "tp_ladder_wall_s" in timing.GLOBAL.counters)
+                        "tree_progressive/pool" in timing.GLOBAL.phases)
     assert out["4"][0] == out["1"][0]
     assert out["4"][1] == out["1"][1]
     assert out["4"][2] and not out["1"][2]

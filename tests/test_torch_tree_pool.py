@@ -71,7 +71,7 @@ def family():
 
 
 def _port_run(genomes, mesh):
-    """(XMFA, ladder counters, forward launch batches) of one port run on
+    """(XMFA, span totals, forward launch batches) of one port run on
     the tree branch, with `mesh` the ambient mesh (use_mesh) and none in
     the options: the node merges' aligners then take the thread's
     ambient mesh."""
@@ -79,7 +79,7 @@ def _port_run(genomes, mesh):
     gotoh_cuda.reset_launches()
     with use_mesh(mesh):
         res = TorchProgressive(TorchOptions(tree_progressive=True, device="cpu")).align(genomes)
-    return (_xmfa(res), dict(timing.GLOBAL.counters),
+    return (_xmfa(res), dict(timing.GLOBAL.phases),
             sorted(s["B"] for s in gotoh_cuda.LAUNCH_SHAPES))
 
 
@@ -100,9 +100,9 @@ def pooled_unmeshed(family):
 def test_pooled_ladder_matches_jax_serial(family, pooled_unmeshed):
     """max_workers=4, no mesh: byte-identical to the JAX package's serial
     XMFA, through the pool."""
-    xmfa, counters, _ = pooled_unmeshed
+    xmfa, phases, _ = pooled_unmeshed
     assert xmfa == family[1]
-    assert "tp_ladder_wall_s" in counters
+    assert "tree_progressive/pool" in phases
 
 
 def test_pooled_ladder_under_mesh_matches_jax_serial(family, pooled_unmeshed, monkeypatch):
@@ -110,9 +110,9 @@ def test_pooled_ladder_under_mesh_matches_jax_serial(family, pooled_unmeshed, mo
     serial XMFA, and every forward batch of the unmeshed run split over
     the 8 shards with torch.tensor_split's sizes, the workers' batches too
     (the caller's thread-local mesh is carried into each task)."""
-    xmfa, counters, batches = _pooled(family[0], make_mesh(8, device="cpu"), monkeypatch)
+    xmfa, phases, batches = _pooled(family[0], make_mesh(8, device="cpu"), monkeypatch)
     assert xmfa == family[1]
-    assert "tp_ladder_wall_s" in counters
+    assert "tree_progressive/pool" in phases
     split = sorted(len(p) for B in pooled_unmeshed[2]
                    for p in torch.tensor_split(torch.arange(B), 8) if len(p))
     assert batches == split
@@ -123,9 +123,9 @@ def test_env_default_opens_the_pool(family, monkeypatch):
     XMFA is the JAX package's serial one."""
     genomes, want = family
     monkeypatch.setenv("MAUVE_TP_WORKERS", "4")
-    got, counters, _ = _port_run(genomes, None)
+    got, phases, _ = _port_run(genomes, None)
     assert got == want
-    assert "tp_ladder_wall_s" in counters
+    assert "tree_progressive/pool" in phases
 
 
 def test_pool_reraises_a_merge_error(family, monkeypatch):
