@@ -21,7 +21,16 @@ from typing import List, Optional, Sequence, TextIO, Tuple, Union
 
 import numpy as np
 
-from mauvealigner_tpu_torch.genome.sequence import Genome
+from mauvealigner_tpu_torch.genome.sequence import Genome, complement_ascii, revcomp_ascii
+from mauvealigner_tpu_torch.utils import timing
+
+# The XMFA writer assembles runs of blocks at most _BATCH_MAX_COLS columns
+# wide in chunks of about _BATCH_BYTES of text and headers: a fixed number of
+# NumPy passes and one write a chunk, some 30 ns a cell and 1.5 us a row.  A
+# wider block is written row by row, some 8 ns a cell and 17 us a row; the
+# two cost the same near 512 columns.
+_BATCH_MAX_COLS = 512
+_BATCH_BYTES = 1 << 22
 
 
 @dataclasses.dataclass
@@ -69,13 +78,18 @@ class Interval:
 
     def aligned_text(self, genomes: Sequence[Genome], seq: int) -> str:
         """Gapped alignment row for one sequence (revcomp for negative)."""
-        if self.starts[seq] == 0:
-            return "-" * self.n_cols
-        length = int(self.aln[seq].sum())
-        bases = genomes[seq].subseq_signed(int(self.starts[seq]), length)
+        return self.aligned_bytes(genomes, seq).tobytes().decode("ascii")
+
+    def aligned_bytes(self, genomes: Sequence[Genome], seq: int) -> np.ndarray:
+        """aligned_text as ASCII uint8."""
         out = np.full(self.n_cols, ord("-"), dtype=np.uint8)
-        out[self.aln[seq]] = np.frombuffer(bases.encode(), np.uint8)
-        return out.tobytes().decode("ascii")
+        start = int(self.starts[seq])
+        if start == 0:
+            return out
+        left = abs(start)
+        bases = genomes[seq].seq[left - 1 : left - 1 + int(self.aln[seq].sum())]
+        out[self.aln[seq]] = revcomp_ascii(bases) if start < 0 else bases
+        return out
 
     def strip_gap_columns(self) -> "Interval":
         """Drop all-gap columns (stripGapColumns tool semantics)."""
@@ -159,6 +173,8 @@ class IntervalList:
             with open(out, "w") as fh:
                 self.write_xmfa(fh, width=width)
                 return
+        if width < 1:
+            raise ValueError(f"XMFA line width {width} is below 1")
         fh = out
         names = self.filenames()
         fh.write("#FormatVersion Mauve1\n")
@@ -168,20 +184,7 @@ class IntervalList:
             fh.write(f"#Sequence{i + 1}Format\tFastA\n")
         if self.backbone_filename:
             fh.write(f"#BackboneFile\t{self.backbone_filename}\n")
-        for iv in self.intervals:
-            lefts, rights = iv.lefts(), iv.rights()
-            for seq in range(iv.n_seqs):
-                if iv.starts[seq] == 0:
-                    fh.write(f"> {seq + 1}:0-0 + {names[seq]}\n")
-                    text = "-" * iv.n_cols
-                else:
-                    strand = "+" if iv.starts[seq] > 0 else "-"
-                    fh.write(f"> {seq + 1}:{lefts[seq]}-{rights[seq]} {strand} {names[seq]}\n")
-                    text = iv.aligned_text(self.genomes, seq)
-                for c in range(0, len(text), width):
-                    fh.write(text[c : c + width])
-                    fh.write("\n")
-            fh.write("=\n")
+        _XmfaBlocks(self.genomes, names, width).write(fh, self.intervals)
 
     @classmethod
     def read_xmfa(
@@ -331,3 +334,194 @@ class IntervalList:
             intervals=new_ivs,
             seq_filenames=[self.filenames()[i] for i in idx],
         )
+
+
+# the byte that pads a header's fields to their tables' widths: UTF-8 never
+# holds it, and a header is ASCII but for its name
+_PAD = 0xFF
+
+
+def _decimal(x: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """Non-negative integers in decimal ASCII: an [n, len(x)] uint8 table,
+    its column j the digits of x[j] right-aligned and padded with _PAD, and
+    each one's count of digits."""
+    n = len(str(int(x.max(initial=0))))
+    rest = x.astype(np.uint32 if n < 10 else np.uint64)
+    tab = np.empty((n, len(x)), np.uint8)
+    n_digits = np.ones(len(x), np.int64)
+    for i in range(n - 1, -1, -1):
+        q = rest // 10
+        tab[i] = rest - 10 * q
+        rest = q
+        if i:
+            n_digits += x >= 10 ** (n - i)
+    tab += ord("0")
+    tab[np.arange(n)[:, None] < n - n_digits] = _PAD
+    return tab, n_digits
+
+
+def _table(strs: Sequence[bytes]) -> Tuple[np.ndarray, np.ndarray]:
+    """Byte strings left-aligned in a [len(strs), longest] uint8 table padded
+    with _PAD, and their lengths."""
+    lens = np.array([len(b) for b in strs], np.int64)
+    w = int(lens.max(initial=0))
+    tab = np.full((len(strs), w), _PAD, np.uint8)
+    tab[np.arange(w) < lens[:, None]] = np.frombuffer(b"".join(strs), np.uint8)
+    return tab, lens
+
+
+class _XmfaBlocks:
+    """The blocks of an XMFA file, each row a header line ("> j:left-right
+    strand name", "> j:0-0 + name" where sequence j is absent) and its gapped
+    text in lines of `width`, each block closed by "=".
+
+    Runs of narrow blocks are assembled in chunks, each as one uint8 buffer
+    with a fixed number of NumPy calls and one write; a wide block is
+    written row by row.  The counters xmfa_rows and xmfa_rows_batched count
+    the rows written and those assembled in chunks."""
+
+    def __init__(self, genomes: Sequence[Genome], names: Sequence[str], width: int):
+        self.genomes = genomes
+        self.names = list(names)
+        self.width = width
+        self._all_seq = None  # every genome's bytes end to end, built on first use
+        # a header's bytes before its left end, and after its right end by strand
+        enc = [n.encode("utf-8", "surrogatepass") for n in self.names]
+        self._open = _table([f"> {j + 1}:".encode() for j in range(len(enc))])
+        self._close = _table([b" %s %s\n" % (s, n) for n in enc for s in (b"+", b"-")])
+
+    def write(self, fh: TextIO, intervals: Sequence[Interval]) -> None:
+        n = len(intervals)
+        rows, cols = np.array([iv.aln.shape for iv in intervals], np.int64).reshape(n, 2).T
+        batched = (cols <= _BATCH_MAX_COLS) & (rows > 0)
+        # a chunk's size: its text and, at some 64 bytes a row, its headers
+        size = np.concatenate([[0], np.cumsum(rows * (cols + 64))])
+        lo = 0
+        for wide in [*np.flatnonzero(~batched).tolist(), n]:
+            # the narrow blocks before this wide one, in chunks of about _BATCH_BYTES
+            while lo < wide:
+                hi = int(np.searchsorted(size, size[lo] + _BATCH_BYTES, side="right")) - 1
+                hi = min(max(hi, lo + 1), wide)
+                fh.write(self._chunk(intervals[lo:hi], rows[lo:hi], cols[lo:hi]))
+                lo = hi
+            if wide < n:
+                self._write_rows(fh, intervals[wide])
+            lo = wide + 1
+        timing.GLOBAL.add("xmfa_rows", float(rows.sum()))
+        timing.GLOBAL.add("xmfa_rows_batched", float(rows[batched].sum()))
+
+    def _write_rows(self, fh: TextIO, iv: Interval) -> None:
+        """One block, a header and one mask store per row, its text's full
+        lines laid out by one reshape."""
+        lefts, rights = iv.lefts(), iv.rights()
+        width, names = self.width, self.names
+        for seq in range(iv.n_seqs):
+            start = int(iv.starts[seq])
+            if start == 0:
+                fh.write(f"> {seq + 1}:0-0 + {names[seq]}\n")
+            else:
+                strand = "+" if start > 0 else "-"
+                fh.write(f"> {seq + 1}:{lefts[seq]}-{rights[seq]} {strand} {names[seq]}\n")
+            text = iv.aligned_bytes(self.genomes, seq)
+            k, tail = divmod(len(text), width)
+            lines = np.empty(len(text) + k + (tail > 0), np.uint8)
+            body = lines[: k * (width + 1)].reshape(k, width + 1)
+            body[:, :width] = text[: k * width].reshape(k, width)
+            body[:, width] = ord("\n")
+            if tail:
+                lines[k * (width + 1) : -1] = text[k * width :]
+                lines[-1] = ord("\n")
+            fh.write(lines.tobytes().decode("ascii"))
+        fh.write("=\n")
+
+    def _genome_bytes(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Every genome's bytes end to end, with each genome's offset and
+        length, and last an empty genome."""
+        if self._all_seq is None:
+            seqs = [g.seq for g in self.genomes]
+            lens = np.array([len(s) for s in seqs] + [0], np.int64)
+            self._all_seq = (np.concatenate(seqs + [np.zeros(0, np.uint8)]),
+                             np.cumsum(lens) - lens, lens)
+        return self._all_seq
+
+    def _chunk(self, ivs: Sequence[Interval], n_rows: np.ndarray, n_cols: np.ndarray) -> str:
+        """The text of consecutive blocks, each with a row or more."""
+        width = self.width
+        starts = np.concatenate([iv.starts for iv in ivs], dtype=np.int64)
+        R = len(starts)
+        first_row = np.cumsum(n_rows) - n_rows
+        seq = np.arange(R) - np.repeat(first_row, n_rows)
+        w = np.repeat(n_cols, n_rows)
+        present = starts != 0
+        # the gap structure, row after row; an absent row is all gaps
+        aln = np.concatenate([iv.aln.ravel() for iv in ivs])
+        aln &= np.repeat(present, w)
+        done = np.zeros(aln.size + 1, np.int64)  # bases before each cell
+        np.cumsum(aln, out=done[1:])
+        bounds = done[np.concatenate([[0], np.cumsum(w)])]
+        before, lens = bounds[:-1], np.diff(bounds)
+        left = np.abs(starts)
+        right = np.where(present, left + lens - 1, 0)
+
+        # the bases: one gather, row by row in column order, from the left
+        # end of a forward row and the right end of a reverse one
+        all_seq, g_off, g_len = self._genome_bytes()
+        g_row = np.minimum(seq, len(g_off) - 1)  # a row past the genomes reads none
+        bad = (lens > 0) & (left - 1 + lens > g_len[g_row])
+        if bad.any():
+            r = int(np.flatnonzero(bad)[0])
+            raise ValueError(f"a row of sequence {seq[r] + 1} at {starts[r]} holds "
+                             f"{lens[r]} bases past the end of its genome")
+        fwd = starts > 0
+        g0 = g_off[g_row] + left - 1
+        origin = np.where(fwd, g0 - before, g0 + lens - 1 + before)
+        step = np.where(fwd, 1, -1)
+        k = np.arange(int(bounds[-1]), dtype=np.int64)
+        bases = all_seq[np.repeat(origin, lens) + np.repeat(step, lens) * k]
+        rev = np.repeat(~fwd, lens)
+        bases[rev] = complement_ascii(bases[rev])
+        text = np.full(aln.size, ord("-"), np.uint8)
+        text[aln] = bases
+
+        # the headers as one table, a row each, its fields padded with _PAD:
+        # "=\n" (closing the block before, in each block's first row but the
+        # chunk's first), "> j:", left, "-", right and " strand name\n"
+        lead = np.zeros(R, bool)
+        lead[first_row[1:]] = True
+        close = 2 * seq + (starts < 0)
+        o_tab, o_len = self._open
+        c_tab, c_len = self._close
+        (l_tab, l_len), (r_tab, r_len) = _decimal(left), _decimal(right)
+        fields = [np.frombuffer(b"=\n", np.uint8), o_tab[seq], l_tab.T,
+                  np.frombuffer(b"-", np.uint8), r_tab.T, c_tab[close]]
+        at = np.cumsum([0] + [t.shape[-1] for t in fields])
+        table = np.empty((R, at[-1]), np.uint8)
+        for t, a, b in zip(fields, at, at[1:]):
+            table[:, a:b] = t
+        table[~lead, :2] = _PAD
+        heads = table[table != _PAD]
+        head_len = 2 * lead + o_len[seq] + l_len + 1 + r_len + c_len[close]
+
+        # the layout: per row its header, then per line its characters and
+        # a newline; pieces of kind 0 (header), 1 (text) and 2 (newline)
+        n_lines = -(-w // width)
+        L = int(n_lines.sum())
+        first_line = np.cumsum(n_lines) - n_lines
+        head_piece = first_line * 2 + np.arange(R)
+        text_piece = np.repeat(head_piece + 1 - 2 * first_line, n_lines) + 2 * np.arange(L)
+        line_len = np.full(L, width, np.int64)
+        has = n_lines > 0
+        line_len[(first_line + n_lines - 1)[has]] = (w - (n_lines - 1) * width)[has]
+        count = np.ones(R + 2 * L, np.int64)
+        count[head_piece] = head_len
+        count[text_piece] = line_len
+        kind = np.full(R + 2 * L, 2, np.uint8)
+        kind[head_piece] = 0
+        kind[text_piece] = 1
+        layout = np.repeat(kind, count)
+        buf = np.full(len(layout) + 2, ord("\n"), np.uint8)
+        body = buf[:-2]
+        body[layout == 0] = heads
+        body[layout == 1] = text
+        buf[-2] = ord("=")
+        return str(buf.data, "utf-8", "surrogatepass")

@@ -54,8 +54,12 @@ def decode_codes(codes: np.ndarray) -> np.ndarray:
     return _DECODE_LUT[np.minimum(codes, CODE_N)]
 
 
+def complement_ascii(seq_bytes: np.ndarray) -> np.ndarray:
+    return _COMP_LUT[seq_bytes]
+
+
 def revcomp_ascii(seq_bytes: np.ndarray) -> np.ndarray:
-    return _COMP_LUT[seq_bytes[::-1]]
+    return complement_ascii(seq_bytes[::-1])
 
 
 def revcomp_codes(codes: np.ndarray) -> np.ndarray:
