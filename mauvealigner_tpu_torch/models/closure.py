@@ -199,6 +199,20 @@ def hierarchical_align_region_groups(
         )
     if plan is None:
         plan = chain_plan(n_seqs)
+    with timing.GLOBAL.phase("cl_hier"):
+        return _hierarchical_align(
+            groups, plan, subst, gap_open, gap_extend, max_len, device
+        )
+
+
+def _hierarchical_align(
+    groups, plan, subst, gap_open, gap_extend, max_len, device
+) -> List[np.ndarray]:
+    """The merge rounds of hierarchical_align_region_groups (any group
+    arity); counts its merge jobs by kind and the profile columns it
+    builds."""
+    n_groups = len(groups)
+    n_seqs = len(groups[0])
     with timing.GLOBAL.phase("cl_hier_setup"):
         results: List[Optional[np.ndarray]] = [None] * n_groups
         state: List[Dict[NodeId, State]] = []
@@ -239,14 +253,17 @@ def hierarchical_align_region_groups(
             (code_idx if len(A[0]) == 1 and len(B[0]) == 1 else prof_idx).append(i)
         ops_all: List[Optional[np.ndarray]] = [None] * len(jobs)
         if code_idx:
+            timing.GLOBAL.add("cl_hier_code_merges", len(code_idx))
             code_pairs = [(jobs[i][1][1][0], jobs[i][2][1][0]) for i in code_idx]
             got = _batched_code_pair_align(code_pairs, subst, gap_open, gap_extend, device)
             for i, ops in zip(code_idx, got):
                 ops_all[i] = ops
         if prof_idx:
-            profs = _profiles_of_many(
-                [m for i in prof_idx for m in (jobs[i][1][1], jobs[i][2][1])]
-            )
+            timing.GLOBAL.add("cl_hier_profile_merges", len(prof_idx))
+            sides = [m for i in prof_idx for m in (jobs[i][1][1], jobs[i][2][1])]
+            timing.GLOBAL.add("cl_hier_profile_cols", sum(m.shape[1] for m in sides))
+            with timing.GLOBAL.phase("cl_hier_profiles"):
+                profs = _profiles_of_many(sides)
             prof_pairs = []
             for n, i in enumerate(prof_idx):
                 (_, A, B) = jobs[i]
