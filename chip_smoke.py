@@ -51,6 +51,14 @@ bacterial length and the E. coli length runs.  Every path runs once.
 
 Usage (from the repository root, one NVIDIA GPU):  python3 chip_smoke.py
 
+The K2 extension kernel (extend_matches_kernel) runs in every anchor
+search on the card; its launches are counted per path like the Gotoh
+kernels', and every single-device path but Repeatoire's (which extends on
+the host) must launch it.  On the candidate rows of the largest anchor
+search of configs 1 and 2 at E. coli length, as the main path decodes
+them, it is held row for row to its plain version on the card and to the
+native host loop, then timed beside both and its bytes bound.
+
 Kernel checks compare scores exactly and the decision bytes on each
 problem's live rectangle (dp.live_cell_mask), the only bytes the forward
 kernels write; the traceback kernel is held to the plain traceback on the
@@ -94,7 +102,8 @@ from mauvealigner_tpu_torch.core.mln import write_match_list
 from mauvealigner_tpu_torch.models import progressive, repeatoire
 from mauvealigner_tpu_torch.models.aligner import AlignerOptions, MauveAligner
 from mauvealigner_tpu_torch.models.progressive import ProgressiveMauve, ProgressiveOptions
-from mauvealigner_tpu_torch.ops import _build, dp, gotoh_cuda, matchops
+from mauvealigner_tpu_torch.core.match import MatchList
+from mauvealigner_tpu_torch.ops import _build, dp, extend_cuda, gotoh_cuda, matchops
 from mauvealigner_tpu_torch.parallel import Mesh, find_multi_mums_sharded, multihost
 from mauvealigner_tpu_torch.parallel import sort_contigs_sharded
 from mauvealigner_tpu_torch.tools.cli import main as port_cli
@@ -103,8 +112,9 @@ from mauvealigner_tpu_torch.utils import digest, simulate, timing
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "scripts"))
 from gotoh_replay import (  # noqa: E402
-    TB_CYCLES_PER_STEP, card_line, cuda_ms, forward_bound, print_replay, random_batch,
-    random_profile_batch, replay, sm_clock_mhz, traceback_bound, traceback_chain_floor,
+    HBM_BYTES_PER_S, TB_CYCLES_PER_STEP, card_line, cuda_ms, forward_bound, print_replay,
+    random_batch, random_profile_batch, replay, sm_clock_mhz, traceback_bound,
+    traceback_chain_floor,
 )
 
 DATA = os.path.join(ROOT, "mauvealigner_tpu_torch", "data")
@@ -115,11 +125,17 @@ TIMED_SIDES = (256, 4096)
 # the old limits
 LARGE_SIDES = {"gotoh_forward_profiles": 8192, "gotoh_forward_codes": 16384}
 # the TPU kernel has two input modes; each is its own CUDA kernel here
-KERNELS = {
+GOTOH_KERNELS = {
     "gotoh_forward_codes": "mauvealigner_tpu/ops/dp_pallas.py:183",
     "gotoh_forward_profiles": "mauvealigner_tpu/ops/dp_pallas.py:183",
     "gotoh_traceback": "mauvealigner_tpu/ops/dp.py:286",
 }
+EXTENSION = "extend_matches_kernel"
+KERNELS = {**GOTOH_KERNELS,
+           EXTENSION: "no TPU kernel: the host loop native/mauve_native.cpp::extend_matches"}
+# the E. coli length runs whose anchor search's rows the extension is held
+# and timed on
+EXTENSION_RUNS = ("config1_bacterial", "config2_bacterial")
 POISON = 0xEE
 MESH_SHARDS = 4  # logical shards on the one card (Mesh((cuda:0,) * 4))
 DIGEST_KEYS = ("branch", "guide_tree", "n_lcbs", "n_intervals",
@@ -131,6 +147,17 @@ POOL_WORKERS = 4  # the tree_pool phase's MAUVE_TP_WORKERS
 
 def say(msg: str) -> None:
     print(msg, flush=True)
+
+
+def reset_launches() -> None:
+    """Every kernel's launch count (and the Gotoh launch list) back to 0."""
+    gotoh_cuda.reset_launches()
+    extend_cuda.reset_launches()
+
+
+def launch_counts() -> dict:
+    """Launches of each kernel in KERNELS since the last reset_launches."""
+    return {**gotoh_cuda.LAUNCHES, EXTENSION: extend_cuda.LAUNCHES}
 
 
 def hold(label: str, got: dict, golden: dict, keys) -> None:
@@ -429,6 +456,83 @@ def time_kernels(dev, stats: dict, large: dict) -> None:
         torch.cuda.empty_cache()
 
 
+@contextlib.contextmanager
+def largest_extension():
+    """Inside, record the rows and genomes of the largest
+    extend_cuda.extend_matches call: the anchor search's K2 candidates as
+    the main path decodes them on the card (copies, held for
+    check_extension and time_extension)."""
+    held = {"rows": -1}
+    real = extend_cuda.extend_matches
+
+    def spy(starts, lengths, genomes):
+        if starts.shape[0] > held["rows"]:
+            held.update(rows=int(starts.shape[0]), starts=starts.clone(),
+                        lengths=lengths.clone(), genomes=list(genomes))
+        return real(starts, lengths, genomes)
+
+    with mock.patch.object(extend_cuda, "extend_matches", spy):
+        yield held
+
+
+def extension_bound(genomes, rows: int) -> float:
+    """extend_matches_kernel's bytes bound, ms: every genome read once and
+    the rows (n_seqs starts and a length, int64) read and written once, over
+    HBM_BYTES_PER_S.  Walks read the same bases again (the spaced seed cuts
+    one maximal match into several candidate rows), but the genomes fit the
+    50 MB L2, so those reads are not HBM traffic."""
+    nbytes = sum(len(g) for g in genomes) + 2 * 8 * (len(genomes) + 1) * rows
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def check_extension(label: str, held: dict) -> dict:
+    """extend_matches_kernel on `held`'s rows (largest_extension) against
+    its plain version on the card and the native loop on the host, row for
+    row; exits on any difference.  Returns the inputs for time_extension."""
+    if held["rows"] <= 0:
+        raise SystemExit(f"{label}: extend_matches_kernel was never called")
+    starts, lengths, genomes = held["starts"], held["lengths"], held["genomes"]
+    codes, layout = extend_cuda.genome_buffer(genomes, starts.device)
+    s_k, l_k = extend_cuda._extend_launch(starts, lengths, codes, layout)
+    s_p, l_p = extend_cuda.extend_matches_torch(starts, lengths, codes, layout)
+    want = matchops.extend_matches_maximal(
+        MatchList(starts.cpu().numpy(), lengths.cpu().numpy()), [g.codes for g in genomes],
+        dedup=False)
+    plain_equal = torch.equal(s_k, s_p) and torch.equal(l_k, l_p)
+    native_equal = (np.array_equal(s_k.cpu().numpy(), want.starts)
+                    and np.array_equal(l_k.cpu().numpy(), want.lengths))
+    steps = int((l_k - lengths).sum())
+    say(f"{label}: {EXTENSION} on the anchor search's {held['rows']:,} candidate rows "
+        f"({len(genomes)} genomes, {steps:,} bases grown): equal to its plain version "
+        f"{plain_equal}, to the native loop {native_equal}")
+    if not (plain_equal and native_equal):
+        raise SystemExit(f"{label}: {EXTENSION} disagrees with its "
+                         f"{'plain version' if not plain_equal else 'native loop'}")
+    return {"rows": held["rows"], "n_seqs": len(genomes), "steps": steps,
+            "inputs": (starts, lengths, codes, layout), "genomes": genomes}
+
+
+def time_extension(label: str, checked: dict) -> dict:
+    """The kernel over 20 launches (cuda_ms), its plain version once after
+    a warm call (plain_ms) and the native loop once on the host, on the rows
+    check_extension held, with nothing else on the card; beside the bound."""
+    starts, lengths, codes, layout = checked["inputs"]
+    genomes = checked["genomes"]
+    ms = cuda_ms(lambda: extend_cuda._extend_launch(starts, lengths, codes, layout), 20)
+    p_ms = plain_ms(lambda: extend_cuda.extend_matches_torch(starts, lengths, codes, layout),
+                    True)[0]
+    host = MatchList(starts.cpu().numpy(), lengths.cpu().numpy())
+    t0 = time.perf_counter()
+    matchops.extend_matches_maximal(host, [g.codes for g in genomes], dedup=False)
+    native_ms = (time.perf_counter() - t0) * 1e3
+    bound = extension_bound(genomes, checked["rows"])
+    say(f"time {label}'s {checked['rows']:,} rows: {EXTENSION} {ms:.4f} ms, plain {p_ms:.4f} ms, "
+        f"native loop {native_ms:.1f} ms (host), bound {bound:.6f} ms (bytes), roofline share "
+        f"{bound / ms:.4f} ({card_line()})")
+    return {"rows": checked["rows"], "n_seqs": checked["n_seqs"], "steps": checked["steps"],
+            "ms": ms, "plain_ms": p_ms, "native_ms": native_ms, "bound_ms": bound}
+
+
 def mainpath_times(dev, shapes, config: str) -> dict:
     """Replay a run's recorded launches (random contents at the recorded
     lengths, scripts/gotoh_replay.py): per kernel the summed ms, summed
@@ -460,14 +564,14 @@ def aligner_run(aligner, genomes, golden: dict, label: str) -> dict:
     forward kernel and the traceback launched; returns seconds, launches and
     launch shapes."""
     timing.GLOBAL.reset()
-    gotoh_cuda.reset_launches()
+    reset_launches()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = aligner.align(genomes)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    launches = dict(gotoh_cuda.LAUNCHES)
+    launches = launch_counts()
     shapes = list(gotoh_cuda.LAUNCH_SHAPES)
     buf = io.StringIO()
     res.interval_list.write_xmfa(buf)
@@ -482,7 +586,10 @@ def aligner_run(aligner, genomes, golden: dict, label: str) -> dict:
     say(f"{label}: {secs:.3f} s, {json.dumps(got)}, launches {launches}, "
         f"dp_cells {timing.GLOBAL.counters.get('dp_cells', 0):.0f}{sharded_note()}")
     hold(label, got, golden, got)
-    for k in ("gotoh_forward_codes", "gotoh_traceback"):
+    # the mesh's sharded anchor search keeps the host extension
+    need = ("gotoh_forward_codes", "gotoh_traceback",
+            *((EXTENSION,) if aligner.options.mesh is None else ()))
+    for k in need:
         if launches[k] <= 0:
             raise SystemExit(f"{label}: kernel {k} was never launched")
     return {"seconds": secs, "launches": launches, "shapes": shapes}
@@ -506,7 +613,7 @@ def mauve_aligner_cli_run(dev, directory: str, golden: dict, label: str) -> dict
     0 just before it; held to every field of the golden file, with every
     kernel launched; returns seconds, launches and launch shapes."""
     timing.GLOBAL.reset()
-    gotoh_cuda.reset_launches()
+    reset_launches()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     with contextlib.chdir(directory):
@@ -514,7 +621,7 @@ def mauve_aligner_cli_run(dev, directory: str, golden: dict, label: str) -> dict
         rc = port_cli(["mauveAligner", *digest.CONFIG2_ARGS, f"--device={dev}"])
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-    launches = dict(gotoh_cuda.LAUNCHES)
+    launches = launch_counts()
     shapes = list(gotoh_cuda.LAUNCH_SHAPES)
     got = digest.mauve_aligner_digest(directory)
     c = timing.GLOBAL.counters
@@ -574,14 +681,14 @@ def progressive_run(genomes, golden: dict, label: str, dev, need: tuple, mesh=No
     pm = ProgressiveMauve(ProgressiveOptions(use_sml_cache=False, device=str(dev), mesh=mesh,
                                              **options))
     timing.GLOBAL.reset()
-    gotoh_cuda.reset_launches()
+    reset_launches()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = pm.align(genomes)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    launches = dict(gotoh_cuda.LAUNCHES)
+    launches = launch_counts()
     shapes = list(gotoh_cuda.LAUNCH_SHAPES)
     branch = "tree" if "tree_progressive" in timing.GLOBAL.phases else "extant"
     t0 = time.perf_counter()
@@ -616,7 +723,7 @@ def config3(dev, genomes, mesh=None) -> dict:
     ordered by the guide tree; once on one device or under `mesh`."""
     golden = load_golden("config3_golden.json", genomes)
     say("config3 genomes match the golden sha256")
-    need = ("gotoh_forward_codes", "gotoh_forward_profiles", "gotoh_traceback")
+    need = (*GOTOH_KERNELS, *((EXTENSION,) if mesh is None else ()))
     r = progressive_run(genomes, golden, "config3" if mesh is None else "config3 mesh", dev,
                         need, mesh)
     return {k: r[k] for k in ("seconds", "launches", "shapes")}
@@ -646,7 +753,8 @@ def tree_branch(dev, genomes, truths) -> dict:
     the tree-progressive branch; each (0, i) pair's sn / ppv against the
     simulation truths must equal the golden's."""
     golden = load_golden("tree_golden.json", genomes)
-    r = tree_run(genomes, truths, golden, "tree", dev, ("gotoh_forward_codes", "gotoh_traceback"))
+    r = tree_run(genomes, truths, golden, "tree", dev,
+                 ("gotoh_forward_codes", "gotoh_traceback", EXTENSION))
     return {"seconds": r["seconds"], "launches": r["launches"]}
 
 
@@ -657,7 +765,7 @@ def tree_pool(dev, genomes, truths, serial: dict) -> dict:
     golden = load_golden("tree_golden.json", genomes)
     with mock.patch.dict(os.environ, {"MAUVE_TP_WORKERS": str(POOL_WORKERS)}):
         r = tree_run(genomes, truths, golden, "tree_pool", dev,
-                     ("gotoh_forward_codes", "gotoh_traceback"))
+                     ("gotoh_forward_codes", "gotoh_traceback", EXTENSION))
     if "tree_progressive/pool" not in r["phases"]:
         raise SystemExit("tree_pool: the ladder did not run on its thread pool")
     say(f"tree_pool: wall {r['seconds']:.3f} s with {POOL_WORKERS} ladder workers, "
@@ -709,7 +817,7 @@ def repeatoire_run(genome, golden: dict, label: str, dev) -> dict:
     launched."""
     rp = repeatoire.Repeatoire(repeatoire.RepeatoireOptions(device=str(dev)))
     timing.GLOBAL.reset()
-    gotoh_cuda.reset_launches()
+    reset_launches()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -717,7 +825,7 @@ def repeatoire_run(genome, golden: dict, label: str, dev) -> dict:
     fams = rp.find_repeats(genome, matches=(ml, counts))
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    launches = dict(gotoh_cuda.LAUNCHES)
+    launches = launch_counts()
     shapes = list(gotoh_cuda.LAUNCH_SHAPES)
     got = digest.repeatoire_digest(repeatoire, write_match_list, genome, fams, ml)
     c = timing.GLOBAL.counters
@@ -729,7 +837,7 @@ def repeatoire_run(genome, golden: dict, label: str, dev) -> dict:
     for k in digest.REPEATOIRE_KEYS:
         if got[k] != golden[k]:
             raise SystemExit(f"{label}: {k} = {got[k]!r}, golden {golden[k]!r}")
-    for k in KERNELS:
+    for k in GOTOH_KERNELS:  # repeatoire extends its seeds on the host
         if launches[k] <= 0:
             raise SystemExit(f"{label}: kernel {k} was never launched")
     return {"seconds": secs, "launches": launches, "shapes": shapes}
@@ -781,7 +889,7 @@ def draft_run(ref, drafts, golden: dict, label: str, dev, mesh=None) -> dict:
     from mauvealigner_tpu_torch.tools import manipulate
 
     timing.GLOBAL.reset()
-    gotoh_cuda.reset_launches()
+    reset_launches()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -797,7 +905,7 @@ def draft_run(ref, drafts, golden: dict, label: str, dev, mesh=None) -> dict:
                                               mesh=mesh)).align([ref] + reordered)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    launches = dict(gotoh_cuda.LAUNCHES)
+    launches = launch_counts()
     shapes = list(gotoh_cuda.LAUNCH_SHAPES)
     branch = "tree" if "tree_progressive" in timing.GLOBAL.phases else "extant"
     got = digest.draft_digest(reordered, logs, res, branch, golden["bbcols_name"])
@@ -813,7 +921,7 @@ def draft_run(ref, drafts, golden: dict, label: str, dev, mesh=None) -> dict:
     peak = torch.cuda.max_memory_allocated()
     say(f"{label} peak device memory {peak / 2**20:.1f} MiB (front half {front_peak / 2**20:.1f} MiB)")
     hold(label, got, golden, (*digest.DRAFT_KEYS, *DIGEST_KEYS))
-    for k in KERNELS:
+    for k in (KERNELS if mesh is None else GOTOH_KERNELS):
         if launches[k] <= 0:
             raise SystemExit(f"{label}: kernel {k} was never launched")
     return {"seconds": secs, "front_half_seconds": front, "launches": launches,
@@ -888,7 +996,7 @@ def config5_bacterial(dev, ref, drafts) -> dict:
     say(f"config5_bacterial mesh front half: {pairs} pair rows of up to {longest:,} entries, "
         f"{pairs * longest * 16 / 2**30:.2f} GiB of padded pair tables")
     timing.GLOBAL.reset()
-    gotoh_cuda.reset_launches()
+    reset_launches()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -899,7 +1007,7 @@ def config5_bacterial(dev, ref, drafts) -> dict:
     got = digest.front_half_digest(reordered, logs)
     say(f"config5_bacterial mesh front half: {secs:.3f} s under the {MESH_SHARDS}-shard mesh, "
         f"{r['front_half_seconds']:.3f} s sequential on one device; {got['contigs_placed']} "
-        f"contigs placed, launches {dict(gotoh_cuda.LAUNCHES)}, peak device memory "
+        f"contigs placed, launches {launch_counts()}, peak device memory "
         f"{peak / 2**30:.2f} GiB{sharded_note()} ({card_line()})")
     hold("config5_bacterial mesh front half", got, golden, digest.FRONT_HALF_KEYS)
     return {**r, "mesh_front_half_seconds": secs, "mesh_front_half_peak_bytes": peak}
@@ -1177,11 +1285,19 @@ def run_phases(pool, built):
     del b_ref, b_drafts
     lap("config5_bacterial")
     # BASELINE configs 1, 2 and 3 at E. coli length, uncut, once each
-    runs_bact = {}
+    # (and the extension kernel held to its plain version and the native
+    # loop on config 1's and config 2's anchor search rows)
+    runs_bact, extension = {}, {}
     for kind, run in (("config1_bacterial", config1_bacterial),
                       ("config2_bacterial", config2_bacterial),
                       ("config3_extant_bacterial", config3_extant_bacterial)):
-        runs_bact[kind] = run(dev, take_built(kind, built[kind]))
+        if kind in EXTENSION_RUNS:
+            with largest_extension() as held:
+                runs_bact[kind] = run(dev, take_built(kind, built[kind]))
+            extension[kind] = check_extension(kind, held)
+            del held
+        else:
+            runs_bact[kind] = run(dev, take_built(kind, built[kind]))
         lap(kind)
     t0 = time.perf_counter()
     runs_headline = headline_run.result()
@@ -1195,6 +1311,7 @@ def run_phases(pool, built):
     say(f"kernel checks done in their worker process; waited {time.perf_counter() - t0:.1f} s "
         "for them")
     time_kernels(dev, stats, large)
+    extension_times = {kind: time_extension(kind, extension.pop(kind)) for kind in EXTENSION_RUNS}
     lap("time_kernels")
     mainpath2 = mainpath_times(dev, runs2["shapes"], "2")
     mainpath = mainpath_times(dev, runs3["shapes"], "3")
@@ -1207,8 +1324,26 @@ def run_phases(pool, built):
                      for kind, r in runs_bact.items()}
     lap("replays")
 
+    def launches_by_path(name: str) -> dict:
+        return {
+            "config1": runs["launches"][name],
+            "config2": runs2["launches"][name],
+            "config3": runs3["launches"][name],
+            "tree": runs_tree["launches"][name],
+            "tree_pool": runs_pool["launches"][name],
+            "config4": runs4["launches"][name],
+            "config4_big": runs4_big["launches"][name],
+            "config4_chrom": runs4_chrom["launches"][name],
+            "headline": runs_headline["launches"][name],
+            "config5": runs5["launches"][name],
+            "config5_wide": runs5_wide["launches"][name],
+            "config5_bacterial": runs5_bact["launches"][name],
+            **{k: r["launches"][name] for k, r in runs_bact.items()},
+            **{k: r["launches"][name] for k, r in mesh_runs.items()},
+        }
+
     kernels = []
-    for name, replaces in KERNELS.items():
+    for name, replaces in GOTOH_KERNELS.items():
         s = stats[name]
         m = mainpath[name]
         kernels.append({
@@ -1219,22 +1354,7 @@ def run_phases(pool, built):
             # launches of the draft workflow's main path (config 5, cold
             # run); each path's own counts beside it
             "launches": runs5["launches"][name],
-            "launches_by_path": {
-                "config1": runs["launches"][name],
-                "config2": runs2["launches"][name],
-                "config3": runs3["launches"][name],
-                "tree": runs_tree["launches"][name],
-                "tree_pool": runs_pool["launches"][name],
-                "config4": runs4["launches"][name],
-                "config4_big": runs4_big["launches"][name],
-                "config4_chrom": runs4_chrom["launches"][name],
-                "headline": runs_headline["launches"][name],
-                "config5": runs5["launches"][name],
-                "config5_wide": runs5_wide["launches"][name],
-                "config5_bacterial": runs5_bact["launches"][name],
-                **{k: r["launches"][name] for k, r in runs_bact.items()},
-                **{k: r["launches"][name] for k, r in mesh_runs.items()},
-            },
+            "launches_by_path": launches_by_path(name),
             "max_abs_err": s["max_abs_err"],
             # ms, plain_ms and bound_ms at the largest timed side
             "ms": s["ms"],
@@ -1292,6 +1412,26 @@ def run_phases(pool, built):
                                mainpath_headline_chain_floor_ms=mainpath_h[name]["chain_floor_ms"],
                                mainpath_config5_bacterial_chain_floor_ms=(
                                    mainpath_5b[name]["chain_floor_ms"]))
+    largest = extension_times["config2_bacterial"]
+    kernels.append({
+        "name": EXTENSION,
+        "route": "cuda",
+        "source": "mauvealigner_tpu_torch/csrc/extend.cu",
+        "replaces": KERNELS[EXTENSION],
+        "launches": runs5["launches"][EXTENSION],
+        "launches_by_path": launches_by_path(EXTENSION),
+        # integers: the rows equal the plain version's and the native loop's
+        "max_abs_err": 0,
+        # ms, plain_ms and bound_ms on config 2 bacterial's anchor search rows
+        "ms": largest["ms"],
+        "plain_ms": largest["plain_ms"],
+        "bound_ms": largest["bound_ms"],
+        "bound_by": "bytes",
+        # no PyTorch call extends matches
+        "library_ms": None,
+        "rows": largest["rows"],
+        "by_path": extension_times,
+    })
     return kernels, {
         "shards": MESH_SHARDS,
         "seconds": {k: r["seconds"] for k, r in mesh_runs.items()},

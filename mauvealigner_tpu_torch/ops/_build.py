@@ -4,6 +4,8 @@ nvcc compiles the sources into one shared library with a plain C interface
 (-gencode arch=compute_90a,code=sm_90a), written to the git-ignored
 build/kernels/ directory under a name keyed by a hash of the sources and
 flags, and loaded with ctypes.  Only sources inside the package are built.
+The wrappers (ops/gotoh_cuda.py, ops/extend_cuda.py) share the helpers at
+the end: input checks, pointers, the current stream and launch errors.
 """
 
 from __future__ import annotations
@@ -18,6 +20,8 @@ import tempfile
 import threading
 import time
 from typing import Optional
+
+import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -74,6 +78,12 @@ def _compile(so: str) -> None:
 
 
 def _bind(lib: ctypes.CDLL) -> None:
+    _bind_gotoh(lib)
+    _bind_extend(lib)
+
+
+def _bind_gotoh(lib: ctypes.CDLL) -> None:
+    """Declare csrc/gotoh.cu's C functions."""
     P, I, F, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
     lib.gotoh_forward_scratch_bytes.argtypes = [I, I, I, LL]
     lib.gotoh_forward_scratch_bytes.restype = LL
@@ -86,6 +96,13 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.gotoh_traceback_launch.restype = I
     lib.gotoh_error_string.argtypes = [I]
     lib.gotoh_error_string.restype = ctypes.c_char_p
+
+
+def _bind_extend(lib: ctypes.CDLL) -> None:
+    """Declare csrc/extend.cu's C function."""
+    P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.extend_matches_launch.argtypes = [P, P, P, P, LL, I, P, P, P]
+    lib.extend_matches_launch.restype = I
 
 
 def library() -> ctypes.CDLL:
@@ -101,3 +118,31 @@ def library() -> ctypes.CDLL:
             _bind(lib)
             _lib = lib
     return _lib
+
+
+def check_tensor(t: torch.Tensor, name: str, dtype: torch.dtype, shape, device) -> None:
+    """Raise unless `t` is a contiguous `dtype` tensor of `shape` on `device`."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def stream(dev) -> ctypes.c_void_p:
+    """The current CUDA stream of `dev`, which every launcher takes."""
+    return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+
+
+def raise_on_error(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise on a launcher's nonzero return (its cudaGetLastError())."""
+    if err != 0:
+        msg = lib.gotoh_error_string(err).decode()
+        raise RuntimeError(f"{what} launch failed: CUDA error {err} ({msg})")

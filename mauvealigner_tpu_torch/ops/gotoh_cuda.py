@@ -34,7 +34,8 @@ from typing import Tuple
 
 import torch
 
-from mauvealigner_tpu_torch.ops import dp
+from mauvealigner_tpu_torch.ops import _build, dp
+from mauvealigner_tpu_torch.ops._build import check_tensor, ptr, raise_on_error, stream
 
 LAUNCHES = {"gotoh_forward_codes": 0, "gotoh_forward_profiles": 0, "gotoh_traceback": 0}
 # one dict per forward call of dp.align_*_batch_async: kernel, M, N, B,
@@ -62,27 +63,6 @@ def record_shape(**shape) -> None:
         LAUNCH_SHAPES.append(shape)
 
 
-def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape, device) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
-def _raise_on_error(lib, err: int, what: str) -> None:
-    if err != 0:
-        msg = lib.gotoh_error_string(err).decode()
-        raise RuntimeError(f"{what} launch failed: CUDA error {err} ({msg})")
-
-
-def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
-
-
 def _kernel_gaps(gap_open: float, gap_extend: float) -> Tuple[float, float]:
     """(go_ge, ge) for a kernel launch.  The kernels take gap scores <= 0:
     only then do the cells left of column 0 hold the NEG sentinels that the
@@ -96,10 +76,6 @@ def _kernel_gaps(gap_open: float, gap_extend: float) -> Tuple[float, float]:
     return go_ge, ge
 
 
-def _stream(dev) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-
-
 def _slab(lib, B: int, N: int, profiles: bool, dev):
     """(the device slab a forward launch needs, its pointer), or (None, a
     null pointer) when the problems fit shared memory."""
@@ -107,7 +83,7 @@ def _slab(lib, B: int, N: int, profiles: bool, dev):
     if not nbytes:
         return None, ctypes.c_void_p(None)
     slab = torch.empty(nbytes, dtype=torch.uint8, device=dev)
-    return slab, _ptr(slab)
+    return slab, ptr(slab)
 
 
 def gotoh_forward_codes(
@@ -137,26 +113,24 @@ def _forward_codes_launch(codes_a, codes_b, lens_a, lens_b, subst, gap_open, gap
     B, M = codes_a.shape
     N = codes_b.shape[1]
     dev = codes_a.device
-    _check(codes_a, "codes_a", torch.uint8, (B, M), dev)
-    _check(codes_b, "codes_b", torch.uint8, (B, N), dev)
-    _check(lens_a, "lens_a", torch.int32, (B,), dev)
-    _check(lens_b, "lens_b", torch.int32, (B,), dev)
-    _check(subst, "subst", torch.float32, (5, 5), dev)
+    check_tensor(codes_a, "codes_a", torch.uint8, (B, M), dev)
+    check_tensor(codes_b, "codes_b", torch.uint8, (B, N), dev)
+    check_tensor(lens_a, "lens_a", torch.int32, (B,), dev)
+    check_tensor(lens_b, "lens_b", torch.int32, (B,), dev)
+    check_tensor(subst, "subst", torch.float32, (5, 5), dev)
     scores = torch.empty(B, dtype=torch.float32, device=dev)
     dec = torch.empty((B, M + N + 1, M + 1), dtype=torch.uint8, device=dev)
     if B == 0:
         return scores, dec
-    from mauvealigner_tpu_torch.ops import _build
-
     lib = _build.library()
     go_ge, ge = _kernel_gaps(gap_open, gap_extend)
     with torch.cuda.device(dev):
         slab, slab_ptr = _slab(lib, B, N, False, dev)  # held until the launch is queued
         err = lib.gotoh_forward_codes_launch(
-            _ptr(codes_a), _ptr(codes_b), _ptr(lens_a), _ptr(lens_b), _ptr(subst),
-            go_ge, ge, B, M, N, 0, 0, slab_ptr, _ptr(scores), _ptr(dec), _stream(dev),
+            ptr(codes_a), ptr(codes_b), ptr(lens_a), ptr(lens_b), ptr(subst),
+            go_ge, ge, B, M, N, 0, 0, slab_ptr, ptr(scores), ptr(dec), stream(dev),
         )
-    _raise_on_error(lib, err, "gotoh_forward_codes")
+    raise_on_error(lib, err, "gotoh_forward_codes")
     count_launch("gotoh_forward_codes")
     return scores, dec
 
@@ -192,27 +166,25 @@ def _forward_profiles_launch(prof_a, prof_b, lens_a, lens_b, subst, gap_open, ga
     B, M, _ = prof_a.shape
     N = prof_b.shape[1]
     dev = prof_a.device
-    _check(prof_a, "prof_a", torch.float32, (B, M, 5), dev)
-    _check(prof_b, "prof_b", torch.float32, (B, N, 5), dev)
-    _check(lens_a, "lens_a", torch.int32, (B,), dev)
-    _check(lens_b, "lens_b", torch.int32, (B,), dev)
-    _check(subst, "subst", torch.float32, (5, 5), dev)
+    check_tensor(prof_a, "prof_a", torch.float32, (B, M, 5), dev)
+    check_tensor(prof_b, "prof_b", torch.float32, (B, N, 5), dev)
+    check_tensor(lens_a, "lens_a", torch.int32, (B,), dev)
+    check_tensor(lens_b, "lens_b", torch.int32, (B,), dev)
+    check_tensor(subst, "subst", torch.float32, (5, 5), dev)
     scores = torch.empty(B, dtype=torch.float32, device=dev)
     dec = torch.empty((B, M + N + 1, M + 1), dtype=torch.uint8, device=dev)
     if B == 0:
         return scores, dec
-    from mauvealigner_tpu_torch.ops import _build
-
     lib = _build.library()
     go_ge, ge = _kernel_gaps(gap_open, gap_extend)
     with torch.cuda.device(dev):
         slab, slab_ptr = _slab(lib, B, N, True, dev)  # held until the launch is queued
         err = lib.gotoh_forward_profiles_launch(
-            _ptr(prof_a), _ptr(prof_b), _ptr(lens_a), _ptr(lens_b), _ptr(subst),
-            go_ge, ge, B, M, N, int(bool(normalize)), 0, 0, slab_ptr, _ptr(scores),
-            _ptr(dec), _stream(dev),
+            ptr(prof_a), ptr(prof_b), ptr(lens_a), ptr(lens_b), ptr(subst),
+            go_ge, ge, B, M, N, int(bool(normalize)), 0, 0, slab_ptr, ptr(scores),
+            ptr(dec), stream(dev),
         )
-    _raise_on_error(lib, err, "gotoh_forward_profiles")
+    raise_on_error(lib, err, "gotoh_forward_profiles")
     count_launch("gotoh_forward_profiles")
     return scores, dec
 
@@ -240,21 +212,19 @@ def _traceback_launch(dec, lens_a, lens_b):
     if N < 0:
         raise ValueError(f"dec shape {tuple(dec.shape)} is not [B, M+N+1, M+1]")
     dev = dec.device
-    _check(dec, "dec", torch.uint8, (B, n_diags, W), dev)
-    _check(lens_a, "lens_a", torch.int32, (B,), dev)
-    _check(lens_b, "lens_b", torch.int32, (B,), dev)
+    check_tensor(dec, "dec", torch.uint8, (B, n_diags, W), dev)
+    check_tensor(lens_a, "lens_a", torch.int32, (B,), dev)
+    check_tensor(lens_b, "lens_b", torch.int32, (B,), dev)
     ops = torch.empty((B, M + N), dtype=torch.uint8, device=dev)
     counts = torch.empty(B, dtype=torch.int32, device=dev)
     if B == 0:
         return ops, counts
-    from mauvealigner_tpu_torch.ops import _build
-
     lib = _build.library()
     with torch.cuda.device(dev):
         err = lib.gotoh_traceback_launch(
-            _ptr(dec), _ptr(lens_a), _ptr(lens_b), B, M, N, 0, _ptr(ops), _ptr(counts),
-            _stream(dev),
+            ptr(dec), ptr(lens_a), ptr(lens_b), B, M, N, 0, ptr(ops), ptr(counts),
+            stream(dev),
         )
-    _raise_on_error(lib, err, "gotoh_traceback")
+    raise_on_error(lib, err, "gotoh_traceback")
     count_launch("gotoh_traceback")
     return ops, counts

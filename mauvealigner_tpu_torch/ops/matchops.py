@@ -14,7 +14,9 @@ scans:
      signature (diagonal invariants included);
   4. merge runs of consecutive reference windows with equal signatures into
      one match, then
-  5. extend matches base by base to maximality on the host (native C++).
+  5. extend matches base by base to maximality: on a CUDA device with the
+     kernel of ops/extend_cuda.py, decode and dedup on the device too;
+     elsewhere on the host (native C++).
 
 Strand handling follows SeedMatchEnumerator::SetDirection
 (src/SeedMatchEnumerator.h:127-141): the first participating genome is the
@@ -43,7 +45,7 @@ import torch
 from mauvealigner_tpu_torch.core.match import NO_MATCH, MatchList
 from mauvealigner_tpu_torch.core.sml import SortedMerList
 from mauvealigner_tpu_torch.genome.sequence import CODE_N, Genome
-from mauvealigner_tpu_torch.ops import merops
+from mauvealigner_tpu_torch.ops import extend_cuda, merops
 from mauvealigner_tpu_torch.ops.merops import INVALID_KEY
 from mauvealigner_tpu_torch.utils import timing
 
@@ -353,34 +355,58 @@ def find_multi_mums_device(
     if N == 0:
         return MatchList.empty(n_seqs)
     cap = initial_cap if initial_cap is not None else max(1 << 14, N >> 3)
-    ml = _candidates_with_retry(
+    on_card = extend and keys.device.type == "cuda"
+    head, cap = _candidate_head(
         keys, seq_ids, pos, torch.from_numpy(mask).to(keys.device), n_seqs, cap,
-        min_multi, seed_length,
+        min_multi, fetch=not on_card,
     )
-    if extend and len(ml):
+    if on_card:
+        # decode, extension and dedup stay on the card; the span ends
+        # after the one fetch of the deduplicated rows
         with timing.GLOBAL.phase("k2_extend"):
-            ml = extend_matches_maximal(ml, [g.codes for g in genomes])
+            ml = _extend_on_card(head, genomes, seed_length)
+    else:
+        ml = decode_mum_table(head, n_seqs, cap, seed_length)
+        if extend and len(ml):
+            timing.GLOBAL.add("k2_extend_rows", float(len(ml)))
+            with timing.GLOBAL.phase("k2_extend"):
+                ml = extend_matches_maximal(ml, [g.codes for g in genomes])
     if nway:
         ml = ml.multiplicity_filter(n_seqs)
     return ml
 
 
-def _candidates_with_retry(
-    keys, seq_ids, pos, mask, n_seqs, cap, min_multi, seed_length
-) -> MatchList:
-    """Run device_mum_candidates, doubling cap on overflow, and decode."""
+def _extend_on_card(head: torch.Tensor, genomes: Sequence[Genome], seed_length: int) -> MatchList:
+    """decode_mum_table, extend_matches_maximal and MatchList.dedup on the
+    card (the same rows in the same order), then one fetch."""
+    n_seqs = len(genomes)
+    starts, lengths = decode_mum_rows(head, n_seqs, seed_length)
+    n = float(lengths.shape[0])
+    timing.GLOBAL.add("k2_extend_rows", n)
+    if not n:
+        return MatchList.empty(n_seqs)
+    starts, lengths = extend_cuda.extend_matches(starts, lengths, genomes)
+    timing.GLOBAL.add("k2_extend_rows_device", n)
+    rows = torch.cat([starts, lengths[:, None]], 1)
+    kept = rows[dedup_rows(rows)].cpu().numpy()
+    return MatchList(np.ascontiguousarray(kept[:, :n_seqs]), np.ascontiguousarray(kept[:, n_seqs]))
+
+
+def _candidate_head(keys, seq_ids, pos, mask, n_seqs, cap, min_multi, fetch: bool):
+    """Run device_mum_candidates, doubling cap on overflow: (the table's
+    row 0 and its n_runs run rows, fetched to the host if `fetch`, else
+    left on the device; the cap that held them)."""
     while True:
         with timing.GLOBAL.phase("k2_dispatch"):
             table = device_mum_candidates(keys, seq_ids, pos, mask, n_seqs, cap, min_multi)
         with timing.GLOBAL.phase("k2_fetch"):
             n_runs = int(table[0, 0])
-            head = table[: n_runs + 1].cpu().numpy() if n_runs <= cap else None
-        if head is not None:
-            break
+            if n_runs <= cap:
+                head = table[: n_runs + 1]
+                return (head.cpu().numpy() if fetch else head), cap
         # capacity overflow (repeat-dense input): raise to the covering power
         # of two and re-run — truncating here would silently drop anchors
         cap = 1 << int(n_runs - 1).bit_length()
-    return decode_mum_table(head, n_seqs, cap, seed_length)
 
 
 def decode_mum_table(
@@ -410,6 +436,38 @@ def decode_mum_table(
     rev = starts < 0
     starts[rev] = starts[rev] + run_len[np.nonzero(rev)[0]]
     return MatchList(starts, lengths.astype(np.int64))
+
+
+def decode_mum_rows(
+    head: torch.Tensor, n_seqs: int, seed_length: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """decode_mum_table in torch, on `head`'s device: (starts int64
+    [R, n_seqs], lengths int64 [R]) of the run rows that pass its filter, in
+    order.  `head` holds row 0 and exactly the n_runs run rows."""
+    packed = head[1:]
+    comp, span = packed[:, :n_seqs], packed[:, n_seqs:]
+    ok = (span[:, 0] >= 0) & (span[:, 1] >= span[:, 0])
+    comp, span = comp[ok], span[ok]
+    run_len = (span[:, 1] - span[:, 0]).to(torch.int64)
+    # rev comps stored at the run-first window slide left by run_len
+    starts = comp.to(torch.int64)
+    starts = torch.where(starts < 0, starts + run_len[:, None], starts)
+    return starts, run_len + seed_length
+
+
+def dedup_rows(rows: torch.Tensor) -> torch.Tensor:
+    """The rows MatchList.dedup keeps of `rows` ([R, n_seqs + 1]: the
+    starts, then the length), in torch on their device: the index of each
+    distinct row's first occurrence, ascending.  Stable sorts from the last
+    column to the first give the lexicographic order with ties in row
+    order."""
+    order = torch.arange(rows.shape[0], device=rows.device)
+    for c in range(rows.shape[1] - 1, -1, -1):
+        order = order[torch.sort(rows[order, c], stable=True).indices]
+    ranked = rows[order]
+    first = torch.ones(rows.shape[0], dtype=torch.bool, device=rows.device)
+    first[1:] = (ranked[1:] != ranked[:-1]).any(1)
+    return torch.sort(order[first]).values
 
 
 def extend_matches_maximal(
@@ -923,7 +981,8 @@ def find_gap_mums_batched(
     mask = torch.ones(n, dtype=torch.int32, device=keys.device)
     cap = max(1 << 14, N >> 3)
     with timing.GLOBAL.phase("recursion_kernel"):
-        ml = _candidates_with_retry(keys, seq_ids, pos, mask, n, cap, 2, seed.length)
+        head, cap = _candidate_head(keys, seq_ids, pos, mask, n, cap, 2, fetch=True)
+        ml = decode_mum_table(head, n, cap, seed.length)
     if len(ml) == 0:
         return np.zeros(0, np.int64), MatchList.empty(n)
     if extend:

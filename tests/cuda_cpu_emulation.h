@@ -1,10 +1,12 @@
-// A CPU stand-in for the few CUDA features csrc/gotoh.cu uses, so that its
-// kernels' schedules (the forward kernels' strips, phases, shuffles and
-// shared buffers; the traceback's tiles and op ring) can
-// run under g++ in tests/test_torch_gotoh_emulated.py.  One std::thread per
-// CUDA thread, blocks one after another; std::barrier implements
-// __syncthreads, __syncwarp and both halves of __shfl_up_sync (every lane
-// writes, all wait, every lane reads, all wait).  Shared memory is one
+// A CPU stand-in for the few CUDA features csrc/gotoh.cu and csrc/extend.cu
+// use, so that their kernels' schedules (the forward kernels' strips,
+// phases, shuffles and shared buffers; the traceback's tiles and op ring;
+// the extension's paired walks and word reads) can run under g++ in
+// tests/test_torch_gotoh_emulated.py and tests/test_torch_extend.py.  One
+// std::thread per CUDA thread, blocks one after another; std::barrier
+// implements __syncthreads, __syncwarp and both halves of __shfl_up_sync and
+// __shfl_xor_sync (every lane writes, all wait, every lane reads, all
+// wait).  The word and byte intrinsics are plain bit arithmetic.  Shared memory is one
 // buffer per block.  Arithmetic is plain IEEE f32 (build with
 // -ffp-contract=off).  The traceback's reads of dec (dec_copy16, dec_byte)
 // are plain copies that record, per slab, the lowest and highest byte
@@ -50,6 +52,7 @@ using std::min;
 struct EmuWarp {
     std::barrier<> bar{32};
     float val[32];
+    long long wide[32];
 };
 
 struct EmuBlock {
@@ -76,6 +79,37 @@ inline float __shfl_up_sync(unsigned, float v, int delta) {
     const float r = lane >= delta ? w.val[lane - delta] : v;
     w.bar.arrive_and_wait();
     return r;
+}
+
+inline long long __shfl_xor_sync(unsigned, long long v, int mask) {
+    EmuWarp& w = *emu_block->warps[threadIdx.x / 32];
+    const int lane = threadIdx.x & 31;
+    w.wide[lane] = v;
+    w.bar.arrive_and_wait();
+    const long long r = w.wide[lane ^ mask];
+    w.bar.arrive_and_wait();
+    return r;
+}
+
+template <class T> inline T __ldg(const T* p) { T v; std::memcpy(&v, p, sizeof v); return v; }
+// the low 32 bits of {hi, lo} >> (shift & 31)
+inline unsigned __funnelshift_r(unsigned lo, unsigned hi, unsigned shift) {
+    return (unsigned)((((unsigned long long)hi << 32) | lo) >> (shift & 31));
+}
+// 1-based index of the lowest set bit, 0 if none
+inline int __ffs(int x) { return __builtin_ffs(x); }
+// per byte: 0xff where the condition holds, else 0
+template <class P> inline unsigned emu_bytewise(unsigned a, unsigned b, P pred) {
+    unsigned r = 0;
+    for (int k = 0; k < 4; ++k)
+        if (pred((a >> (8 * k)) & 0xff, (b >> (8 * k)) & 0xff)) r |= 0xffu << (8 * k);
+    return r;
+}
+inline unsigned __vcmpeq4(unsigned a, unsigned b) {
+    return emu_bytewise(a, b, [](unsigned x, unsigned y) { return x == y; });
+}
+inline unsigned __vcmpltu4(unsigned a, unsigned b) {
+    return emu_bytewise(a, b, [](unsigned x, unsigned y) { return x < y; });
 }
 
 struct uint4 { unsigned x, y, z, w; };

@@ -60,7 +60,7 @@ def _compile(tmp_path_factory, name: str, edit=lambda src: src):
         check=True, capture_output=True, text=True,
     )
     lib = ctypes.CDLL(str(so))
-    _build._bind(lib)
+    _build._bind_gotoh(lib)
     ll = ctypes.POINTER(ctypes.c_longlong)
     lib.emu_dec_read_range.argtypes = [ctypes.c_void_p, ll, ll]
     lib.emu_dec_read_range.restype = ctypes.c_int

@@ -143,7 +143,7 @@ def test_device_slab_at_small_sides(rng, cuda_device, kind, side):
     lib = _build.library()
     go_ge, ge = dp.gap_scalars(GO, GE)
     stream = ctypes.c_void_p(torch.cuda.current_stream(cuda_device).cuda_stream)
-    p = gotoh_cuda._ptr
+    p = _build.ptr
     nbytes = lib.gotoh_forward_scratch_bytes(B, side, int(kind == "profiles"), limit)
     assert nbytes > 0
     slab = torch.empty(nbytes, dtype=torch.uint8, device=cuda_device)
@@ -180,7 +180,7 @@ def test_every_block_shape_matches_plain(rng, cuda_device, warps):
     lib = _build.library()
     go_ge, ge = dp.gap_scalars(GO, GE)
     stream = ctypes.c_void_p(torch.cuda.current_stream(cuda_device).cuda_stream)
-    p = gotoh_cuda._ptr
+    p = _build.ptr
     for kind in ("codes", "profiles"):
         scores = torch.empty(10, dtype=torch.float32, device=cuda_device)
         dec = torch.empty((10, 2 * side + 1, side + 1), dtype=torch.uint8, device=cuda_device)
@@ -481,7 +481,7 @@ def test_traceback_every_block_shape(rng, cuda_device, per_block):
     dec, la, lb = _poisoned_decisions(rng, "codes", B, M, N, cuda_device)
     ops = torch.empty((B, M + N), dtype=torch.uint8, device=cuda_device)
     counts = torch.empty(B, dtype=torch.int32, device=cuda_device)
-    p = gotoh_cuda._ptr
+    p = _build.ptr
     stream = ctypes.c_void_p(torch.cuda.current_stream(cuda_device).cuda_stream)
     err = _build.library().gotoh_traceback_launch(
         p(dec), p(la), p(lb), B, M, N, per_block, p(ops), p(counts), stream)

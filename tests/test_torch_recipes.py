@@ -18,7 +18,7 @@ import pytest
 import torch
 
 from mauvealigner_tpu.utils import simulate
-from mauvealigner_tpu_torch.ops import dp, gotoh_cuda
+from mauvealigner_tpu_torch.ops import dp, extend_cuda, gotoh_cuda, matchops
 from mauvealigner_tpu_torch.utils import digest
 from mauvealigner_tpu_torch.utils import simulate as port_simulate
 
@@ -54,6 +54,15 @@ def _counting(name, fn):
     return call
 
 
+def _counting_extension(fn):
+    """The host extension, counted as a launch of the extension kernel (on
+    the CPU the anchor search extends on the host)."""
+    def call(*args, **kwargs):
+        extend_cuda.LAUNCHES += 1
+        return fn(*args, **kwargs)
+    return call
+
+
 @pytest.mark.parametrize("kind", list(digest.BACTERIAL_RECIPES))
 def test_bacterial_recipe_golden_and_phase(kind, tmp_path):
     import chip_smoke
@@ -75,8 +84,9 @@ def test_bacterial_recipe_golden_and_phase(kind, tmp_path):
         assert golden[key] > 0
     assert golden["genome_sha256"] == digest.genome_sha256(genomes)
 
-    # on the CPU the wrappers run the plain versions, which count no launch:
-    # count them here so that the phase's launch checks can pass
+    # on the CPU the wrappers run the plain versions, which count no launch,
+    # and the anchor search extends on the host: count them here so that
+    # the phase's launch checks can pass
     with mock.patch.object(chip_smoke, "DATA", str(tmp_path)), \
             mock.patch.object(chip_smoke, "card_line", lambda: "cpu"), \
             mock.patch.multiple(torch.cuda, synchronize=lambda *a: None,
@@ -87,9 +97,12 @@ def test_bacterial_recipe_golden_and_phase(kind, tmp_path):
                                                       dp.gotoh_forward_codes_ref),
                 gotoh_forward_profiles_ref=_counting("gotoh_forward_profiles",
                                                      dp.gotoh_forward_profiles_ref),
-                gotoh_traceback_ref=_counting("gotoh_traceback", dp.gotoh_traceback_ref)):
+                gotoh_traceback_ref=_counting("gotoh_traceback", dp.gotoh_traceback_ref)), \
+            mock.patch.object(matchops, "extend_matches_maximal",
+                              _counting_extension(matchops.extend_matches_maximal)):
         r = getattr(chip_smoke, kind)(torch.device("cpu"), genomes)
     assert r["launches"]["gotoh_forward_codes"] > 0 and r["launches"]["gotoh_traceback"] > 0
+    assert r["launches"]["extend_matches_kernel"] > 0
     assert sum(s["B"] for s in r["shapes"]) > 0
     if kind == "config2_bacterial":
         assert set(digest.CONFIG2_KEYS) <= set(golden)
