@@ -107,41 +107,6 @@ def adapted_params(
     return HmmParams(go_homologous, go_unrelated, emit_h, emit_u)
 
 
-_TRANSITION_PAIRS = {(0, 2), (2, 0), (1, 3), (3, 1)}  # A<->G, C<->T
-
-
-def _build_symbol_lut() -> np.ndarray:
-    """6x6 code-pair -> symbol class table (codes 0-3 bases, 4 N, 5 gap)."""
-    lut = np.full((6, 6), SYM_GAP, np.int8)
-    lut[5, 5] = SYM_NONE
-    for a in range(4):
-        for b in range(4):
-            if a == b:
-                lut[a, b] = SYM_MATCH
-            elif (a, b) in _TRANSITION_PAIRS:
-                lut[a, b] = SYM_TRANSITION
-            else:
-                lut[a, b] = SYM_TRANSVERSION
-    return lut
-
-
-SYMBOL_LUT = _build_symbol_lut()
-
-
-def column_symbols(
-    iv: Interval, genomes: Sequence[Genome], i: int, j: int
-) -> np.ndarray:
-    """Symbol class per column for the (i, j) pairwise projection.
-
-    Columns where both are gapped get SYM_NONE (emission-neutral: the
-    reference scores the PROJECTED pair, which does not contain them, so a
-    long third-sequence insertion must not drive the pair into Unrelated).
-    """
-    ci = _signed_codes_row(iv, genomes, i)
-    cj = _signed_codes_row(iv, genomes, j)
-    return SYMBOL_LUT[ci, cj]
-
-
 def _signed_codes_row(iv: Interval, genomes: Sequence[Genome], seq: int) -> np.ndarray:
     """Per-column base code (4=N, 5=gap/absent) in match-space orientation."""
     out = np.full(iv.n_cols, 5, np.int8)
@@ -154,103 +119,6 @@ def _signed_codes_row(iv: Interval, genomes: Sequence[Genome], seq: int) -> np.n
     return out
 
 
-def pairwise_homology_posteriors(
-    ivs: IntervalList,
-    params: HmmParams,
-    max_cols: int = 1 << 16,
-    threshold: Optional[float] = None,
-    device="cuda",
-) -> Dict[Tuple[int, int, int], np.ndarray]:
-    """P(Homologous) per column for every (interval, i, j) pairwise
-    projection with both sequences present.  Batched through the K4 kernel
-    with length bucketing.
-
-    With `threshold` set, the comparison runs on the device and bool
-    arrays come back — the backbone detector only consumes the thresholded
-    posterior."""
-    genomes = ivs.genomes
-    overlap = 512
-    # SYM_NONE (both-gap) columns are REMOVED before the decode — the
-    # reference decodes the pairwise projection, which does not contain
-    # them, so transition probability must not accrue across a long
-    # third-sequence insertion.  Posteriors are scattered back to full
-    # column space with forward-fill across the removed columns (the
-    # projected decode's state carries over them; detect_backbone masks
-    # those columns with iv.aln anyway).
-    from mauvealigner_tpu_torch.utils import timing
-
-    with timing.GLOBAL.phase("bb_symbols"):
-        jobs = []  # (key, chunk_start_in_compact, symbols_chunk)
-        compact_idx: Dict[Tuple[int, int, int], np.ndarray] = {}
-        full_len: Dict[Tuple[int, int, int], int] = {}
-        for k, iv in enumerate(ivs.intervals):
-            present = [s for s in range(iv.n_seqs) if iv.starts[s] != 0]
-            # signed code rows once per (interval, seq) — every pair reuses them
-            rows = {s: _signed_codes_row(iv, genomes, s) for s in present}
-            for ai in range(len(present)):
-                for bi in range(ai + 1, len(present)):
-                    i, j = present[ai], present[bi]
-                    sym_full = SYMBOL_LUT[rows[i], rows[j]]
-                    key = (k, i, j)
-                    nz = np.nonzero(sym_full != SYM_NONE)[0]
-                    full_len[key] = len(sym_full)
-                    compact_idx[key] = nz
-                    sym_c = sym_full[nz]
-                    T_c = len(sym_c)
-                    if T_c == 0:
-                        continue
-                    if T_c <= max_cols:
-                        jobs.append((key, 0, sym_c))
-                    else:
-                        # chunk with overlap; posteriors stitched mid-overlap
-                        step = max_cols - overlap
-                        for a in range(0, T_c, step):
-                            b = min(a + max_cols, T_c)
-                            jobs.append((key, a, sym_c[a:b]))
-                            if b == T_c:
-                                break
-    out: Dict[Tuple[int, int, int], np.ndarray] = {}
-    if not jobs:
-        return out
-    with timing.GLOBAL.phase("bb_decode"):
-        decoded = hmm_ops.bucketed_decode(
-            [sym for (_, _, sym) in jobs],
-            params.log_trans(),
-            np.log([0.5, 0.5]),
-            mode="posterior0" if threshold is None else "threshold0",
-            threshold=0.5 if threshold is None else threshold,
-            max_cols=max_cols,
-            emit_table=params.log_emit_table(),  # [2, 4]; lookup runs on device
-            device=device,
-        )
-    with timing.GLOBAL.phase("bb_stitch"):
-        compact_out: Dict[Tuple[int, int, int], np.ndarray] = {}
-        for (key, a, sym), p in zip(jobs, decoded):
-            if key not in compact_out:
-                compact_out[key] = np.zeros(
-                    len(compact_idx[key]), bool if threshold is not None else np.float64
-                )
-            if a == 0:
-                compact_out[key][a : a + len(sym)] = p
-            else:
-                # skip the first half-overlap (burn-in) when stitching
-                skip = overlap // 2
-                compact_out[key][a + skip : a + len(sym)] = p[skip:]
-        for key, pc in compact_out.items():
-            nz = compact_idx[key]
-            T_full = full_len[key]
-            if len(nz) == T_full:
-                out[key] = pc
-            else:
-                # forward-fill from the nearest decoded column at/before each
-                # position (clamped to the first decoded column at the start)
-                carry = np.maximum(
-                    np.searchsorted(nz, np.arange(T_full), side="right") - 1, 0
-                )
-                out[key] = pc[carry]
-    return out
-
-
 def pairwise_homology_bits(
     ivs: IntervalList,
     params: HmmParams,
@@ -259,22 +127,19 @@ def pairwise_homology_bits(
     overlap: int = 2048,
     device="cuda",
 ) -> Dict[Tuple[int, int, int], np.ndarray]:
-    """Device-resident replacement for the detect_backbone consumer of
-    pairwise_homology_posteriors: thresholded P(Homologous) per column for
-    every (interval, i, j) projection, as bool arrays.
+    """Thresholded P(Homologous) per column for every (interval, i, j)
+    pairwise projection with both sequences present, as bool arrays.
 
-    The host path extracts a SYMBOL stream per PAIR (n^2/2 uploads per
-    interval, host LUT + both-gap compaction + posterior stitch-back);
-    here one uint8 code ROW per present (interval, seq) uploads once, and
+    One uint8 code ROW per present (interval, seq) uploads once, and
     pair symbol classes, emission lookup, both-gap inert handling
     (identity chain elements — the projected-pair semantics), decode and
     thresholding all run on `device` (ops/hmm.pair_rows_state0_gt); the
     bools come back in one transfer per chunk.  Reference analog: detectAndApplyBackbone
     scoring the pairwise projections, src/progressiveMauve.cpp:226-260.
 
-    Chunking above max_cols stitches mid-overlap like the host path; the
-    overlap is wider (2048 vs 512) because inert both-gap columns consume
-    burn-in without advancing the projected chain.
+    Chunking above max_cols stitches mid-overlap; the overlap is 2048
+    columns because inert both-gap columns consume burn-in without
+    advancing the projected chain.
     """
     genomes = ivs.genomes
     from mauvealigner_tpu_torch.utils import timing
@@ -378,26 +243,16 @@ def detect_backbone(
     params: HmmParams,
     island_gap_size: int = 20,
     posterior_threshold: float = 0.5,
-    device_symbols: bool = True,
     device="cuda",
 ) -> List[BackboneColumnSegment]:
     """detectBackbone + BigGapsDetector equivalents
     (src/progressiveMauve.cpp:242-243): per sequence per column, homologous
     iff some partner's pair-HMM posterior exceeds the threshold; gap runs
-    longer than island_gap_size are never backbone.
-
-    device_symbols routes the posterior pass through the device-resident
-    row path (pairwise_homology_bits, the default); False takes the host
-    symbol path, which remains the cross-validation reference.  Both decode
-    on `device`."""
-    if device_symbols:
-        posts = pairwise_homology_bits(
-            ivs, params, threshold=posterior_threshold, device=device
-        )
-    else:
-        posts = pairwise_homology_posteriors(
-            ivs, params, threshold=posterior_threshold, device=device
-        )
+    longer than island_gap_size are never backbone.  The posteriors are
+    decoded and thresholded on `device` (pairwise_homology_bits)."""
+    posts = pairwise_homology_bits(
+        ivs, params, threshold=posterior_threshold, device=device
+    )
     from mauvealigner_tpu_torch.utils import timing
 
     with timing.GLOBAL.phase("bb_detect"):

@@ -514,7 +514,7 @@ class MauveAligner:
 
         o = self.options
         n = 2
-        prof_pairs = []   # (profA, lenA, profB, lenB)
+        prof_pairs = []   # (profA, profB)
         pair_ref: List[Tuple[int, int]] = []
         gap_table: dict = {}
         per_lcb_matches: List[MatchList] = []
@@ -533,26 +533,19 @@ class MauveAligner:
                         )
                         for g in range(n)
                     ]
-                    la, lb = len(regs[0]), len(regs[1])
-                    if la == 0 and lb == 0:
-                        gap_table[(li, a)] = np.zeros((n, 0), bool)
-                    elif la == 0 or lb == 0 or max(la, lb) > o.max_gapped_len:
-                        # degenerate or over the cap: unaligned block emission
-                        aln = np.zeros((n, la + lb), bool)
-                        aln[0, :la] = True
-                        aln[1, la:] = True
-                        gap_table[(li, a)] = aln
+                    if closure._degenerate([len(r) for r in regs], o.max_gapped_len):
+                        gap_table[(li, a)] = closure._unaligned_blocks(regs)
                     else:
-                        prof_pairs.append((regs[0], la, regs[1], lb))
+                        prof_pairs.append(regs)
                         pair_ref.append((li, a))
         if prof_pairs:
-            ops_list = closure._batched_profile_pair_align(
+            ops_list = dp.align_profile_pairs(
                 prof_pairs,
                 o.subst if o.subst is not None else dp.HOXD70,
                 o.gap_open,
                 o.gap_extend,
-                self.device,
                 normalize=True,
+                device=self.device,
             )
             for (li, a), ops in zip(pair_ref, ops_list):
                 ra, rb = dp.ops_to_gap_rows(ops)

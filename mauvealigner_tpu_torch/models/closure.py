@@ -12,8 +12,9 @@ Two modes share one engine:
     postorder of the guide tree.
 
 At every merge round, ALL gap regions' pairs are bucketed by length and
-aligned in one batched Gotoh launch per bucket chunk (ops/dp.py): code pairs
-for leaf-leaf merges, uint8 count profiles for merges with a multi-row side.
+aligned in one batched Gotoh launch per bucket chunk (ops/dp.py's K3
+batcher): code pairs for leaf-leaf merges, uint8 count profiles for merges
+with a multi-row side.
 """
 
 from __future__ import annotations
@@ -24,8 +25,6 @@ import numpy as np
 
 from mauvealigner_tpu_torch.ops import dp
 from mauvealigner_tpu_torch.utils import timing
-
-PROFILE_BUCKETS = (16, 32, 64, 128, 256, 512, 1024, 2048, 4096)
 
 NodeId = Union[int, str]
 # merge-node state: (member seq ids int32 [m], column codes int8 [m, n_cols];
@@ -128,13 +127,22 @@ def _profiles_of_many(ccs: Sequence[np.ndarray]) -> List[np.ndarray]:
 
 
 def _unaligned_blocks(regs: Sequence[np.ndarray]) -> np.ndarray:
-    total = sum(len(r) for r in regs)
-    aln = np.zeros((len(regs), total), dtype=bool)
-    off = 0
-    for i, r in enumerate(regs):
-        aln[i, off : off + len(r)] = True
-        off += len(r)
+    lens = [len(r) for r in regs]
+    total = sum(lens)
+    aln = np.zeros((len(lens), total), dtype=bool)
+    if total:  # most regions between adjacent anchors are empty
+        off = 0
+        for i, n in enumerate(lens):
+            aln[i, off : off + n] = True
+            off += n
     return aln
+
+
+def _degenerate(lens: Sequence[int], max_len: int) -> bool:
+    """A side empty, or a side over max_len: the region is emitted as
+    _unaligned_blocks (--max-gapped-aligner-length semantics,
+    src/mauveAligner.cpp:675-676)."""
+    return min(lens) == 0 or max(lens) > max_len
 
 
 def _pairwise_align_region_groups(
@@ -144,28 +152,17 @@ def _pairwise_align_region_groups(
     PAIRWISE groups: stage the code pairs straight into the bucketed batch
     and build each gap's boolean rows from the op string (output identical
     to the general path, whose one merge step degenerates to exactly this).
-    Empty regions give empty or one-sided blocks; regions over max_len are
-    emitted unaligned (--max-gapped-aligner-length semantics,
-    src/mauveAligner.cpp:675-676)."""
+    Degenerate regions (_degenerate) are emitted unaligned."""
     results: List[Optional[np.ndarray]] = [None] * len(groups)
     pairs, pidx = [], []
     for k, regs in enumerate(groups):
-        a, b = regs
-        la, lb = len(a), len(b)
-        if la == 0 and lb == 0:
-            results[k] = np.zeros((2, 0), bool)
-        elif la > max_len or lb > max_len:
+        if _degenerate(tuple(map(len, regs)), max_len):
             results[k] = _unaligned_blocks(regs)
-        elif la == 0 or lb == 0:
-            aln = np.zeros((2, la + lb), bool)
-            aln[0, :la] = True
-            aln[1, la:] = True
-            results[k] = aln
         else:
-            pairs.append((a, b))
+            pairs.append(regs)
             pidx.append(k)
     if pairs:
-        ops_list = _batched_code_pair_align(pairs, subst, gap_open, gap_extend, device)
+        ops_list = dp.align_code_pairs(pairs, subst, gap_open, gap_extend, device)
         for k, ops in zip(pidx, ops_list):
             ra, rb = dp.ops_to_gap_rows(ops)
             results[k] = np.stack([ra, rb])
@@ -240,7 +237,7 @@ def _hierarchical_align(
             if A is None or B is None:
                 st[node] = A if B is None else B
                 continue
-            if A[1].shape[1] > max_len or B[1].shape[1] > max_len:
+            if _degenerate((A[1].shape[1], B[1].shape[1]), max_len):
                 results[k] = _unaligned_blocks(groups[k])
                 continue
             jobs.append((k, A, B))
@@ -255,7 +252,7 @@ def _hierarchical_align(
         if code_idx:
             timing.GLOBAL.add("cl_hier_code_merges", len(code_idx))
             code_pairs = [(jobs[i][1][1][0], jobs[i][2][1][0]) for i in code_idx]
-            got = _batched_code_pair_align(code_pairs, subst, gap_open, gap_extend, device)
+            got = dp.align_code_pairs(code_pairs, subst, gap_open, gap_extend, device)
             for i, ops in zip(code_idx, got):
                 ops_all[i] = ops
         if prof_idx:
@@ -264,26 +261,15 @@ def _hierarchical_align(
             timing.GLOBAL.add("cl_hier_profile_cols", sum(m.shape[1] for m in sides))
             with timing.GLOBAL.phase("cl_hier_profiles"):
                 profs = _profiles_of_many(sides)
-            prof_pairs = []
-            for n, i in enumerate(prof_idx):
-                (_, A, B) = jobs[i]
-                prof_pairs.append(
-                    (
-                        profs[2 * n],
-                        A[1].shape[1],
-                        profs[2 * n + 1],
-                        B[1].shape[1],
-                    )
-                )
-            got = _batched_profile_pair_align(
-                prof_pairs, subst, gap_open, gap_extend, device
+            got = dp.align_profile_pairs(
+                list(zip(profs[::2], profs[1::2])), subst, gap_open, gap_extend,
+                device=device,
             )
             for i, ops in zip(prof_idx, got):
                 ops_all[i] = ops
         with timing.GLOBAL.phase("cl_hier_merge"):
             for (k, A, B), ops in zip(jobs, ops_all):
-                consumes_a = (ops == dp.OP_DIAG) | (ops == dp.OP_UP)
-                consumes_b = (ops == dp.OP_DIAG) | (ops == dp.OP_LEFT)
+                consumes_a, consumes_b = dp.ops_to_gap_rows(ops)
                 kA = A[1].shape[0]
                 merged = np.full((kA + B[1].shape[0], len(ops)), GAP, np.int8)
                 merged[:kA, consumes_a] = A[1]
@@ -334,113 +320,3 @@ def align_region_groups(
     return hierarchical_align_region_groups(
         groups, None, subst, gap_open, gap_extend, max_len, device
     )
-
-
-def _batched_code_pair_align(
-    pairs: List[Tuple[np.ndarray, np.ndarray]],
-    subst: np.ndarray,
-    gap_open: float,
-    gap_extend: float,
-    device,
-    memory_budget_bytes: int = 3 << 29,
-) -> List[np.ndarray]:
-    """Bucket plain sequence pairs by side and run batched Gotoh; each
-    launch holds at most memory_budget_bytes of decision bytes (the only
-    per-problem device buffer).  Output does not depend on the chunking."""
-    results: List[Optional[np.ndarray]] = [None] * len(pairs)
-    buckets: dict = {}
-    for i, (a, b) in enumerate(pairs):
-        side = _bucket_of(max(len(a), len(b)))
-        buckets.setdefault(side, []).append(i)
-    pending = []  # (chunk, fetch): launch everything, then download
-    with timing.GLOBAL.phase("cl_dp_stage"):
-        for side, idxs in buckets.items():
-            bmax = max(1, min(4096, memory_budget_bytes // dp.dec_bytes(side, side)))
-            for off in range(0, len(idxs), bmax):
-                chunk = idxs[off : off + bmax]
-                ca = np.full((len(chunk), side), 255, np.uint8)
-                cb = np.full((len(chunk), side), 255, np.uint8)
-                la = np.zeros(len(chunk), np.int32)
-                lb = np.zeros(len(chunk), np.int32)
-                for j, i in enumerate(chunk):
-                    a, b = pairs[i]
-                    ca[j, : len(a)] = np.minimum(a, 4)
-                    cb[j, : len(b)] = np.minimum(b, 4)
-                    la[j], lb[j] = len(a), len(b)
-                pending.append((chunk, dp.align_code_pairs_batch_async(
-                    ca, cb, la, lb, subst, gap_open, gap_extend, device
-                )))
-    with timing.GLOBAL.phase("cl_dp_fetch"):
-        for chunk, fetch in pending:
-            ops_list, _ = fetch()
-            for j, i in enumerate(chunk):
-                results[i] = ops_list[j]
-    return results  # type: ignore[return-value]
-
-
-def _batched_profile_pair_align(
-    pairs: List[Tuple[np.ndarray, int, np.ndarray, int]],
-    subst: np.ndarray,
-    gap_open: float,
-    gap_extend: float,
-    device,
-    memory_budget_bytes: int = 3 << 29,
-    normalize: bool = False,
-) -> List[np.ndarray]:
-    """Bucket (profileA, lenA, profileB, lenB) pairs by side and run batched
-    Gotoh over the profiles; each launch holds at most memory_budget_bytes
-    of decision bytes.  normalize=True scores mean pairwise substitution
-    (profile-aware node merges; see dp.align_profiles_batch)."""
-    results: List[Optional[np.ndarray]] = [None] * len(pairs)
-    buckets: dict = {}
-    for i, (_, la, _, lb) in enumerate(pairs):
-        side = _bucket_of(max(la, lb))
-        buckets.setdefault(side, []).append(i)
-    pending = []  # (chunk, fetch): launch everything, then download
-    with timing.GLOBAL.phase("cl_dp_stage"):
-        for side, idxs in buckets.items():
-            M = N = side
-            bmax = max(1, min(4096, memory_budget_bytes // dp.dec_bytes(M, N)))
-            for off in range(0, len(idxs), bmax):
-                chunk = idxs[off : off + bmax]
-                B = len(chunk)
-                # uint8 counts when every profile in the chunk is uint8 (the
-                # device widens them to f32)
-                dt = (
-                    np.uint8
-                    if all(
-                        pairs[i][0].dtype == np.uint8
-                        and pairs[i][2].dtype == np.uint8
-                        for i in chunk
-                    )
-                    else np.float32
-                )
-                pa = np.zeros((B, M, 5), dt)
-                pb = np.zeros((B, N, 5), dt)
-                la = np.zeros(B, np.int32)
-                lb = np.zeros(B, np.int32)
-                for j, i in enumerate(chunk):
-                    prof_a, len_a, prof_b, len_b = pairs[i]
-                    pa[j, :len_a] = prof_a[:len_a]
-                    pb[j, :len_b] = prof_b[:len_b]
-                    la[j], lb[j] = len_a, len_b
-                pending.append((chunk, dp.align_profiles_batch_async(
-                    pa, pb, la, lb, subst, gap_open, gap_extend, normalize, device
-                )))
-    with timing.GLOBAL.phase("cl_dp_fetch"):
-        for chunk, fetch in pending:
-            ops_list, _ = fetch()
-            for j, i in enumerate(chunk):
-                results[i] = ops_list[j]
-    return results  # type: ignore[return-value]
-
-
-def _bucket_of(n: int) -> int:
-    """Smallest DP side covering n; above the table (user-raised
-    --max-gapped-aligner-length) continue with powers of two."""
-    if n > PROFILE_BUCKETS[-1]:
-        return 1 << (n - 1).bit_length()
-    for b in PROFILE_BUCKETS:
-        if n <= b:
-            return b
-    return PROFILE_BUCKETS[-1]

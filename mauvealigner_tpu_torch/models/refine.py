@@ -55,19 +55,14 @@ def _split_realign(
     if not kept_jobs:
         return [], [], [], [], rest_jobs, rest_groups
     profs = closure._profiles_of_many([m for p in pairs for m in p])
-    prof_pairs = [
-        (profs[2 * i], pairs[i][0].shape[1], profs[2 * i + 1], pairs[i][1].shape[1])
-        for i in range(len(pairs))
-    ]
-    ops_all = closure._batched_profile_pair_align(
-        prof_pairs, dp.HOXD70 if subst is None else subst, gap_open, gap_extend,
-        device,
+    ops_all = dp.align_profile_pairs(
+        list(zip(profs[::2], profs[1::2])), dp.HOXD70 if subst is None else subst,
+        gap_open, gap_extend, device=device,
     )
     new_alns, new_codes_all = [], []
     for job, (rows_a, rows_b, cc_a, cc_b), ops in zip(kept_jobs, sides, ops_all):
         win = job[3]
-        consumes_a = (ops == dp.OP_DIAG) | (ops == dp.OP_UP)
-        consumes_b = (ops == dp.OP_DIAG) | (ops == dp.OP_LEFT)
+        consumes_a, consumes_b = dp.ops_to_gap_rows(ops)
         new_codes = np.full((win.shape[0], len(ops)), GAP, np.int8)
         new_codes[np.ix_(rows_a, np.nonzero(consumes_a)[0])] = cc_a
         new_codes[np.ix_(rows_b, np.nonzero(consumes_b)[0])] = cc_b

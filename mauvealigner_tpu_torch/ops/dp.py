@@ -29,6 +29,8 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
+from mauvealigner_tpu_torch.utils import timing
+
 NEG = -1e9  # exactly representable in f32
 
 OP_NONE, OP_DIAG, OP_UP, OP_LEFT = 0, 1, 2, 3
@@ -355,7 +357,6 @@ def align_code_pairs_batch_async(
     zero-arg fetch() -> (list of op arrays in start-to-end order, scores
     [B]).  Launches are asynchronous on a CUDA device; fetch() blocks."""
     from mauvealigner_tpu_torch.parallel import context as par_ctx
-    from mauvealigner_tpu_torch.utils import timing
 
     B, M = codes_a.shape
     N = codes_b.shape[1]
@@ -434,7 +435,6 @@ def align_profiles_batch_async(
     profile row divided by its count total on the device) — the
     profile-aware mode whose score scale matches plain code alignment."""
     from mauvealigner_tpu_torch.parallel import context as par_ctx
-    from mauvealigner_tpu_torch.utils import timing
 
     B, M, _ = profiles_a.shape
     N = profiles_b.shape[1]
@@ -470,16 +470,6 @@ def align_profiles_batch(
     )()
 
 
-def _bucket(n: int, buckets: Sequence[int]) -> int:
-    for b in buckets:
-        if n <= b:
-            return b
-    return buckets[-1]
-
-
-DEFAULT_BUCKETS = (16, 32, 64, 128, 256, 512, 1024, 2048)
-
-
 def dec_bytes(M: int, N: int) -> int:
     """Device bytes per problem of an M x N launch: the decision array.
     Above a block's shared memory the forward kernels also keep a slab row
@@ -488,61 +478,79 @@ def dec_bytes(M: int, N: int) -> int:
     return (M + N + 1) * (M + 1)
 
 
-def align_sequence_pairs(
+def _align_pairs(pairs, launch, codes: bool) -> List[np.ndarray]:
+    """The K3 batcher: bucket the (a, b) problems by their longer side
+    (the smallest power of two from 16 up that covers it), cut each bucket
+    into launches of at most 4096 problems and 1.5 GiB of decision bytes,
+    pad each launch's sides into [B, side] arrays, queue every launch
+    (launch(a, b, lens_a, lens_b) -> fetch), then fetch in launch order.
+    Code sides are clipped to 4 and padded with 255; count-profile sides
+    [len, 5] are padded with zero rows and stay uint8 when every profile of
+    the launch is uint8, else f32.  Returns each problem's op array; output
+    does not depend on the chunking."""
+    results: List[np.ndarray] = [None] * len(pairs)  # type: ignore[list-item]
+    buckets: dict = {}
+    for i, (a, b) in enumerate(pairs):
+        side = 1 << max(4, (max(len(a), len(b)) - 1).bit_length())
+        buckets.setdefault(side, []).append(i)
+    pending = []  # (chunk, fetch): launch everything, then download
+    with timing.GLOBAL.phase("cl_dp_stage"):
+        for side, idxs in buckets.items():
+            bmax = max(1, min(4096, (3 << 29) // dec_bytes(side, side)))
+            for off in range(0, len(idxs), bmax):
+                chunk = idxs[off : off + bmax]
+                if codes:
+                    shape = (len(chunk), side)
+                    sa, sb = np.full(shape, 255, np.uint8), np.full(shape, 255, np.uint8)
+                else:
+                    shape = (len(chunk), side, 5)
+                    dt = np.uint8 if all(
+                        pairs[i][0].dtype == np.uint8 and pairs[i][1].dtype == np.uint8
+                        for i in chunk
+                    ) else np.float32
+                    sa, sb = np.zeros(shape, dt), np.zeros(shape, dt)
+                la = np.zeros(len(chunk), np.int32)
+                lb = np.zeros(len(chunk), np.int32)
+                for j, i in enumerate(chunk):
+                    a, b = pairs[i]
+                    sa[j, : len(a)] = np.minimum(a, 4) if codes else a
+                    sb[j, : len(b)] = np.minimum(b, 4) if codes else b
+                    la[j], lb[j] = len(a), len(b)
+                pending.append((chunk, launch(sa, sb, la, lb)))
+    with timing.GLOBAL.phase("cl_dp_fetch"):
+        for chunk, fetch in pending:
+            ops_list, _ = fetch()
+            for j, i in enumerate(chunk):
+                results[i] = ops_list[j]
+    return results
+
+
+def align_code_pairs(
     pairs: Sequence[Tuple[np.ndarray, np.ndarray]],
     subst: np.ndarray = HOXD70,
     gap_open: float = DEFAULT_GAP_OPEN,
     gap_extend: float = DEFAULT_GAP_EXTEND,
-    buckets: Sequence[int] = DEFAULT_BUCKETS,
-    max_batch: int = 4096,
-    memory_budget_bytes: int = 3 << 29,
     device="cuda",
 ) -> List[np.ndarray]:
-    """Globally align many (codesA, codesB) pairs, bucketing by length.
+    """Globally align many (codes_a, codes_b) pairs, neither side empty,
+    through the K3 batcher; op arrays in start-to-end order."""
+    return _align_pairs(pairs, lambda ca, cb, la, lb: align_code_pairs_batch_async(
+        ca, cb, la, lb, subst, gap_open, gap_extend, device), codes=True)
 
-    Returns per-pair op arrays.  Pairs longer than the largest bucket raise:
-    callers cap region size (--max-gapped-aligner-length semantics,
-    src/mauveAligner.cpp:675-676).  memory_budget_bytes bounds the decision
-    bytes of one launch (default 1.5 GB).
-    """
-    results: List[np.ndarray] = [None] * len(pairs)  # type: ignore[list-item]
-    groups: dict = {}
-    for idx, (a, b) in enumerate(pairs):
-        if len(a) == 0 or len(b) == 0:
-            # degenerate: pure gap alignment
-            ops = np.concatenate(
-                [np.full(len(a), OP_UP, np.uint8), np.full(len(b), OP_LEFT, np.uint8)]
-            )
-            results[idx] = ops
-            continue
-        if len(a) > buckets[-1] or len(b) > buckets[-1]:
-            raise ValueError(
-                f"region {idx} ({len(a)}x{len(b)}) exceeds the largest DP bucket {buckets[-1]}"
-            )
-        side = _bucket(max(len(a), len(b)), buckets)
-        groups.setdefault(side, []).append(idx)
-    pending = []  # (chunk, fetch): launch everything, then download
-    for side, idxs in groups.items():
-        bmax = max(1, min(max_batch, memory_budget_bytes // dec_bytes(side, side)))
-        for off in range(0, len(idxs), bmax):
-            chunk = idxs[off : off + bmax]
-            ca = np.full((len(chunk), side), 255, np.uint8)
-            cb = np.full((len(chunk), side), 255, np.uint8)
-            la = np.zeros(len(chunk), np.int32)
-            lb = np.zeros(len(chunk), np.int32)
-            for k, idx in enumerate(chunk):
-                a, b = pairs[idx]
-                ca[k, : len(a)] = np.minimum(a, 4)
-                cb[k, : len(b)] = np.minimum(b, 4)
-                la[k], lb[k] = len(a), len(b)
-            pending.append((chunk, align_code_pairs_batch_async(
-                ca, cb, la, lb, subst, gap_open, gap_extend, device
-            )))
-    for chunk, fetch in pending:
-        ops_list, _ = fetch()
-        for k, idx in enumerate(chunk):
-            results[idx] = ops_list[k]
-    return results
+
+def align_profile_pairs(
+    pairs: Sequence[Tuple[np.ndarray, np.ndarray]],
+    subst: np.ndarray = HOXD70,
+    gap_open: float = DEFAULT_GAP_OPEN,
+    gap_extend: float = DEFAULT_GAP_EXTEND,
+    normalize: bool = False,
+    device="cuda",
+) -> List[np.ndarray]:
+    """Globally align many (profile_a, profile_b) pairs of [len, 5] count
+    profiles, neither empty, through the K3 batcher; normalize=True
+    scores mean pairwise substitution (align_profiles_batch_async)."""
+    return _align_pairs(pairs, lambda pa, pb, la, lb: align_profiles_batch_async(
+        pa, pb, la, lb, subst, gap_open, gap_extend, normalize, device), codes=False)
 
 
 def ops_to_gap_rows(ops: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:

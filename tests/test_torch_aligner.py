@@ -132,7 +132,8 @@ def test_mid_pipeline_state_feeds_both_packages(rng):
 def test_seq_profiles_raise(rng):
     """seq_profiles (the profile-aware closure, normalized count-profile DP)
     no longer raises: it gives the JAX package's XMFA on count profiles of
-    a few member rows per side."""
+    a few member rows per side, with gaps that have an empty side and, under
+    a cap of 8 columns, gaps over max_gapped_len (both emitted unaligned)."""
     anc = simulate.random_genome(rng, 3000)
     der, _ = simulate.evolve(anc, rng, sub_rate=0.03, ins_rate=0.002, del_rate=0.002)
     genomes = [anc, der]
@@ -145,12 +146,13 @@ def test_seq_profiles_raise(rng):
             codes[hit] = rng.integers(0, 5, size=int(hit.sum()))
             np.add.at(prof, (np.arange(len(g)), codes), 1)
         profiles.append(prof)
-    o = AlignerOptions(seed_size=11, use_sml_cache=False)
-    ref = MauveAligner(o).align(genomes, seq_profiles=profiles)
-    got = TorchAligner(interop.aligner_options(o, "cpu")).align(
-        interop.genomes(genomes), seq_profiles=profiles
-    )
-    assert _xmfa(ref.interval_list) == _xmfa(got.interval_list)
+    for cap in (4096, 8):
+        o = AlignerOptions(seed_size=11, use_sml_cache=False, max_gapped_len=cap)
+        ref = MauveAligner(o).align(genomes, seq_profiles=profiles)
+        got = TorchAligner(interop.aligner_options(o, "cpu")).align(
+            interop.genomes(genomes), seq_profiles=profiles
+        )
+        assert _xmfa(ref.interval_list) == _xmfa(got.interval_list)
 
 
 def test_cli_outputs_identical(rng, tmp_path):

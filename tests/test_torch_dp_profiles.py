@@ -130,8 +130,8 @@ def test_align_profiles_batch_matches_jax(rng, normalize):
 
 def test_batched_profile_pair_align_matches_jax(rng):
     """Column-code matrices of several member rows, bucketed by side, through
-    the closure's profile batching (the hierarchical merge's multi-row
-    sides)."""
+    the K3 batcher's profile entry point (the hierarchical merge's
+    multi-row sides) against the JAX closure's profile batching."""
     ccs = []
     for n in (3, 17, 40, 90, 150):
         base = rng.integers(0, 4, n)
@@ -146,8 +146,9 @@ def test_batched_profile_pair_align_matches_jax(rng):
     pairs = [(profs[i], ccs[i].shape[1], profs[i + 1], ccs[i + 1].shape[1])
              for i in range(0, len(ccs), 2)]
     ref = jax_closure._batched_profile_pair_align(pairs, jax_dp.HOXD70, GO, GE)
-    got = closure._batched_profile_pair_align(pairs, dp.HOXD70, GO, GE, "cpu")
-    assert all(np.array_equal(r, g) for r, g in zip(ref, got))
+    got = dp.align_profile_pairs([(pa, pb) for pa, _, pb, _ in pairs], dp.HOXD70, GO, GE,
+                                 device="cpu")
+    assert len(ref) == len(got) and all(np.array_equal(r, g) for r, g in zip(ref, got))
 
 
 def test_cpu_profile_tensors_take_the_plain_version(rng):

@@ -186,13 +186,14 @@ def _three_way_intervals(rng):
 
 @pytest.mark.parametrize("device_symbols", [True, False])
 def test_detect_backbone_matches_jax(rng, device_symbols):
-    """Both posterior paths of detect_backbone (device code rows, host
-    symbol streams) give the JAX package's segments on a 3-way alignment."""
+    """The port's one posterior path of detect_backbone gives the segments
+    of both JAX paths (device code rows, host symbol streams) on a 3-way
+    alignment."""
     ivl = _three_way_intervals(rng)
     p = _params(jax_bb.compute_gc(ivl.genomes))
     ref = jax_bb.detect_backbone(ivl, p, 20, device_symbols=device_symbols)
     got = bb.detect_backbone(interop.interval_list(ivl), interop.hmm_params(p), 20,
-                             device_symbols=device_symbols, device="cpu")
+                             device="cpu")
     key = lambda s: (s.interval_index, s.col_start, s.col_end, list(s.seqs))  # noqa: E731
     assert len(ref) > 0 and [key(s) for s in ref] == [key(s) for s in got]
 

@@ -1,11 +1,12 @@
 """Mesh parity of the port's aligners on the CPU: ProgressiveMauve (the
 extant branch and the consensus ladder) and MauveAligner under
 make_mesh(8, device="cpu") write XMFA byte-identical to the port's
-single-device run and to the JAX package's run under its 8-virtual-device
-mesh (tests/conftest.py), on the inputs of tests/test_mesh_progressive.py
-and tests/test_parallel.py.  Under the mesh the N-way anchor search is the
-two-phase all-to-all search, and every DP and HMM batch is split over the
-shards."""
+single-device run and to the JAX package's single-device run, on the
+inputs of tests/test_mesh_progressive.py and tests/test_parallel.py, which
+hold the JAX package's run under its 8-virtual-device mesh
+(tests/conftest.py) equal to its single-device run.  Under the mesh the
+N-way anchor search is the two-phase all-to-all search, and every DP and
+HMM batch is split over the shards."""
 
 import io
 
@@ -14,7 +15,6 @@ import torch
 
 from mauvealigner_tpu.models.aligner import AlignerOptions, MauveAligner
 from mauvealigner_tpu.models.progressive import ProgressiveMauve, ProgressiveOptions
-from mauvealigner_tpu.parallel import make_mesh as jax_make_mesh
 from mauvealigner_tpu.utils import simulate
 from mauvealigner_tpu_torch import interop
 from mauvealigner_tpu_torch.models.aligner import MauveAligner as TorchAligner
@@ -46,16 +46,17 @@ def _family(rng, n, size, sub_rate):
 
 
 def _progressive(genomes, tree_progressive):
-    """(JAX mesh XMFA, port single-device XMFA, port mesh XMFA, the port
-    mesh run's sharded-search counter and forward launch batches)."""
-    o = ProgressiveOptions(mesh=jax_make_mesh(8), tree_progressive=tree_progressive)
+    """(JAX single-device XMFA, port single-device XMFA, port mesh XMFA,
+    the port mesh run's sharded-search counter and forward launch
+    batches)."""
+    o = ProgressiveOptions(tree_progressive=tree_progressive)
     want = _xmfa(ProgressiveMauve(o).align(genomes))
     tg = interop.genomes(genomes)
-    mesh_opts = interop.progressive_options(o, "cpu")
-    assert mesh_opts.mesh.size == 8
-    single_opts = interop.progressive_options(
-        ProgressiveOptions(tree_progressive=tree_progressive), "cpu")
+    single_opts = interop.progressive_options(o, "cpu")
     single = _xmfa(TorchProgressive(single_opts).align(tg))
+    mesh_opts = interop.progressive_options(o, "cpu")
+    mesh_opts.mesh = make_mesh(8, device="cpu")
+    assert mesh_opts.mesh.size == 8
     timing.GLOBAL.reset()
     gotoh_cuda.reset_launches()
     meshed = _xmfa(TorchProgressive(mesh_opts).align(tg))
@@ -82,14 +83,15 @@ def test_mesh_progressive_ladder_identical(rng):
 
 def test_flagship_aligner_under_mesh_identical(rng):
     """MauveAligner with its anchor search over the mesh (and its closure DP
-    split over it): the single-device XMFA and the JAX package's mesh XMFA."""
+    split over it): the single-device XMFA and the JAX package's XMFA."""
     anc = simulate.random_genome(rng, 6000)
     der, _ = simulate.evolve(anc, rng, sub_rate=0.02, ins_rate=0.001, del_rate=0.001)
     genomes = [anc, simulate.apply_inversion(der, 2000, 3500)]
-    o = AlignerOptions(seed_size=11, use_sml_cache=False, mesh=jax_make_mesh(8))
+    o = AlignerOptions(seed_size=11, use_sml_cache=False)
     want = _xmfa(MauveAligner(o).align(genomes))
     tg = interop.genomes(genomes)
     topts = interop.aligner_options(o, "cpu")
+    topts.mesh = make_mesh(8, device="cpu")
     meshed = _xmfa(TorchAligner(topts).align(tg))
     topts.mesh = None
     single = _xmfa(TorchAligner(topts).align(tg))
