@@ -9,16 +9,21 @@ unaligned (gap-opposed) characters longer than a threshold — candidate
 horizontally-transferred / strain-specific sequence.  *Backbone* is the
 complement: column ranges where every sequence is present for at least
 min_bb_length with gaps shorter than max_gap.
+
+The three finders read each present row of an interval once, into its table
+of gap runs (``_GapRuns``), and answer everything else with arithmetic over
+runs: a 4.6 Mbp row with a few thousand indels is a few thousand runs.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Sequence, TextIO, Tuple, Union
+from typing import Dict, List, Sequence, TextIO, Tuple, Union
 
 import numpy as np
 
 from mauvealigner_tpu_torch.core.interval import Interval, IntervalList
+from mauvealigner_tpu_torch.utils import timing
 
 
 @dataclasses.dataclass
@@ -31,64 +36,87 @@ class Island:
     right_j: int
 
 
-def _runs(mask: np.ndarray) -> List[Tuple[int, int]]:
-    """Maximal runs of True: list of (start, end) half-open column indices."""
-    if mask.size == 0:
-        return []
-    d = np.diff(np.concatenate([[0], mask.view(np.int8), [0]]))
-    starts = np.nonzero(d == 1)[0]
-    ends = np.nonzero(d == -1)[0]
-    return list(zip(starts.tolist(), ends.tolist()))
+class _GapRuns:
+    """One alignment row's maximal gap runs, found in one pass over the row.
+
+    ``starts[k]``/``ends[k]`` bound run k (half-open columns; ``starts`` ends
+    with the sentinel n_cols) and ``before[k]`` counts the gap columns of
+    the runs before it.  Positions are those of
+    ``score_alignment._interval_positions``: the base of 1-based rank k sits
+    at |start| + k - 1, or |start| + length - k on the reverse strand.
+    """
+
+    def __init__(self, iv: Interval, seq: int) -> None:
+        row = iv.aln[seq]
+        n = row.size
+        starts = ends = np.zeros(0, np.int64)
+        if n:
+            edges = np.flatnonzero(row[1:] != row[:-1]) + 1
+            bounds = np.concatenate(([0], edges, [n]))
+            first = 1 if row[0] else 0  # the runs alternate, bases then gaps
+            starts, ends = bounds[first:-1:2], bounds[first + 1::2]
+        self.starts = np.append(starts, n).astype(np.int64)
+        self.ends = ends.astype(np.int64)
+        self.before = np.append(0, np.cumsum(ends - starts)).astype(np.int64)
+        self.length = n - int(self.before[-1])  # bases in the row
+        self.left = abs(int(iv.starts[seq]))
+        self.forward = int(iv.starts[seq]) > 0
+
+    def rank(self, cols: np.ndarray) -> np.ndarray:
+        """The row's bases before each column (0 <= col <= n_cols)."""
+        k = np.searchsorted(self.ends, cols, side="right")
+        return cols - self.before[k] - np.maximum(cols - self.starts[k], 0)
+
+    def pos(self, ranks: np.ndarray) -> np.ndarray:
+        """Genome position of the base of each 1-based rank; 0 where the row
+        has no such base."""
+        p = self.left + ranks - 1 if self.forward else self.left + self.length - ranks
+        return np.where((ranks >= 1) & (ranks <= self.length), p, 0)
 
 
-def _col_pos(iv: Interval, seq: int) -> np.ndarray:
-    """Signed position per column (0 at gaps) — see score_alignment."""
-    from mauvealigner_tpu_torch.analysis.score_alignment import _interval_positions
-
-    return _interval_positions(iv, seq)
+def _row_tables(iv: Interval) -> Dict[int, _GapRuns]:
+    """The gap-run table of each present row of `iv`, counted as work."""
+    tables = {s: _GapRuns(iv, s) for s in np.flatnonzero(iv.starts != 0).tolist()}
+    timing.GLOBAL.add("island_row_tables", float(len(tables)))
+    timing.GLOBAL.add("island_gap_runs", float(sum(len(t.ends) for t in tables.values())))
+    return tables
 
 
 def simple_find_islands(
     ivs: IntervalList, island_size: int
 ) -> List[Island]:
     """Per sequence pair: runs of >= island_size columns where one sequence
-    is gapped and the other is not (simpleFindIslands semantics)."""
+    is gapped and the other is not (simpleFindIslands semantics).
+
+    The reference scans the pairwise projection (both-gap columns dropped),
+    so an island of one sequence against the other continues across columns
+    a THIRD sequence inserted: it is the other's bases inside one maximal
+    gap run of the gapped sequence."""
     out: List[Island] = []
     for iv in ivs.intervals:
         if iv.multiplicity() < 2:
             continue
-        present = [s for s in range(iv.n_seqs) if iv.starts[s] != 0]
-        pos = {s: _col_pos(iv, s) for s in present}
+        tables = _row_tables(iv)
+        present = list(tables)
         for ai in range(len(present)):
             for bi in range(ai + 1, len(present)):
                 i, j = present[ai], present[bi]
-                # project out both-gap columns: an island of one sequence
-                # against the other continues across columns a THIRD
-                # sequence inserted (the reference scans the pairwise
-                # projection)
-                keep_idx = np.nonzero(iv.aln[i] | iv.aln[j])[0]
                 for gapped, other in ((i, j), (j, i)):
-                    mask = (~iv.aln[gapped][keep_idx]) & iv.aln[other][keep_idx]
-                    for sp_, ep_ in _runs(mask):
-                        if ep_ - sp_ < island_size:
-                            continue
-                        s, e = int(keep_idx[sp_]), int(keep_idx[ep_ - 1]) + 1
-                        # island bounds in both sequences (nearest bases)
-                        pj = np.abs(pos[other][s:e])
-                        pj = pj[pj > 0]
-                        pi_all = np.abs(pos[gapped])
-                        left_bases = pi_all[:s][pi_all[:s] > 0]
-                        right_bases = pi_all[e:][pi_all[e:] > 0]
-                        li = int(left_bases[-1]) if len(left_bases) else 0
-                        ri = int(right_bases[0]) if len(right_bases) else 0
-                        if gapped == i:
-                            out.append(
-                                Island(i, j, li, ri, int(pj.min()), int(pj.max()))
-                            )
-                        else:
-                            out.append(
-                                Island(j, i, li, ri, int(pj.min()), int(pj.max()))
-                            )
+                    g, o = tables[gapped], tables[other]
+                    lo, hi = o.rank(g.starts[:-1]), o.rank(g.ends)
+                    keep = np.flatnonzero(hi - lo >= max(island_size, 1))
+                    if not keep.size:
+                        continue
+                    lo, hi = lo[keep], hi[keep]
+                    # the gapped sequence's bases before the run: the island
+                    # lies between its bases of ranks r and r + 1
+                    r = g.starts[keep] - g.before[keep]
+                    pj = np.stack([o.pos(lo + 1), o.pos(hi)])
+                    for li, ri, lj, rj in zip(
+                        g.pos(r).tolist(), g.pos(r + 1).tolist(),
+                        pj.min(axis=0).tolist(), pj.max(axis=0).tolist(),
+                    ):
+                        out.append(Island(gapped, other, li, ri, lj, rj))
     return out
 
 
@@ -96,23 +124,25 @@ def find_islands_between_lcbs(
     ivs: IntervalList, seq_lengths: Sequence[int], island_size: int
 ) -> List[Tuple[int, int, int]]:
     """Unaligned inter-LCB regions >= island_size: (seq, left, right)
-    (findIslandsBetweenLCBs semantics, src/mauveAligner.cpp:845)."""
+    (findIslandsBetweenLCBs semantics, src/mauveAligner.cpp:845), the
+    stretches of 1..glen that no multiplicity >= 2 interval covers."""
+    spans: Dict[int, List[Tuple[int, int]]] = {}
+    for iv in ivs.intervals:
+        if iv.multiplicity() < 2:
+            continue
+        for seq, t in _row_tables(iv).items():
+            if t.length:
+                spans.setdefault(seq, []).append((t.left, t.left + t.length - 1))
     out = []
-    n = ivs.n_seqs
-    for seq in range(n):
-        glen = seq_lengths[seq]
-        cov = np.zeros(glen + 2, np.int64)
-        for iv in ivs.intervals:
-            if iv.multiplicity() >= 2 and iv.starts[seq] != 0:
-                l = int(abs(iv.starts[seq]))
-                r = l + int(iv.aln[seq].sum()) - 1
-                cov[l] += 1
-                cov[r + 1] -= 1
-        c = np.cumsum(cov[: glen + 1])
-        free = c[1:] == 0
-        for s, e in _runs(free):
-            if e - s >= island_size:
-                out.append((seq, s + 1, e))
+    for seq in range(ivs.n_seqs):
+        lr = np.array(sorted(spans.get(seq, [])), np.int64).reshape(-1, 2)
+        # the spans cover 1..reach[k] before span k, so the stretch before
+        # it is reach[k] + 1 .. l[k] - 1, and the last one runs to glen
+        reach = np.append(0, np.maximum.accumulate(lr[:, 1]))
+        free_l = reach + 1
+        free_r = np.append(lr[:, 0] - 1, seq_lengths[seq])
+        keep = free_r - free_l + 1 >= max(island_size, 1)
+        out.extend((seq, l, r) for l, r in zip(free_l[keep].tolist(), free_r[keep].tolist()))
     return out
 
 
@@ -137,25 +167,33 @@ def simple_find_backbone(
     for k, iv in enumerate(ivs.intervals):
         if iv.multiplicity() < 2:
             continue
-        present = [s for s in range(iv.n_seqs) if iv.starts[s] != 0]
-        bad = np.zeros(iv.n_cols, bool)
-        for s in present:
-            for a, b in _runs(~iv.aln[s]):
-                if b - a > max_gap_length:
-                    bad[a:b] = True
-        pos = {s: _col_pos(iv, s) for s in present}
-        for a, b in _runs(~bad):
-            lens = [int(iv.aln[s, a:b].sum()) for s in present]
-            if min(lens, default=0) < min_bb_length:
-                continue
-            lefts = np.zeros(iv.n_seqs, np.int64)
-            rights = np.zeros(iv.n_seqs, np.int64)
-            for s in present:
-                p = np.abs(pos[s][a:b])
-                p = p[p > 0]
-                if len(p):
-                    lefts[s], rights[s] = int(p.min()), int(p.max())
-            out.append(BackboneSegment(k, int(a), int(b), lefts, rights))
+        tables = _row_tables(iv)
+        # the union of every present row's long gap runs, as sorted blocks;
+        # the segments are the column ranges between the blocks
+        long_runs = [(t.starts[:-1], t.ends) for t in tables.values()]
+        bs = np.concatenate([s[e - s > max_gap_length] for s, e in long_runs])
+        be = np.concatenate([e[e - s > max_gap_length] for s, e in long_runs])
+        order = np.argsort(bs, kind="stable")
+        bs, reach = bs[order], np.maximum.accumulate(be[order])
+        # a block opens where a run starts past the reach of every run before
+        opens = np.flatnonzero(np.append(True, bs[1:] > reach[:-1])[: len(bs)])
+        seg_a = np.concatenate(([0], reach[opens[1:] - 1], reach[-1:]))
+        seg_b = np.append(bs[opens], iv.n_cols)
+        nonempty = seg_b > seg_a
+        seg_a, seg_b = seg_a[nonempty], seg_b[nonempty]
+        lo = {s: t.rank(seg_a) for s, t in tables.items()}
+        hi = {s: t.rank(seg_b) for s, t in tables.items()}
+        lens = np.stack([hi[s] - lo[s] for s in tables])
+        keep = np.flatnonzero(lens.min(axis=0) >= min_bb_length)
+        lefts = np.zeros((len(keep), iv.n_seqs), np.int64)
+        rights = np.zeros((len(keep), iv.n_seqs), np.int64)
+        for s, t in tables.items():
+            l, h = lo[s][keep], hi[s][keep]
+            p = np.stack([t.pos(l + 1), t.pos(h)])
+            lefts[:, s] = np.where(h > l, p.min(axis=0), 0)
+            rights[:, s] = np.where(h > l, p.max(axis=0), 0)
+        for m, (a, b) in enumerate(zip(seg_a[keep].tolist(), seg_b[keep].tolist())):
+            out.append(BackboneSegment(k, a, b, lefts[m], rights[m]))
     return out
 
 

@@ -3,10 +3,11 @@ analysis/islands.py (tests/test_analysis.py's island, backbone and coverage
 cases), analysis/evd.py with evd and multiEVD, scoreAlignment with the
 reference counters, and analysis/bb_analyze.py with bbAnalyze and
 bbBreakOnGenes (tests/test_analysis_tools.py).  Each case runs both
-packages on the same input and requires equal results: the modules are the
-same host NumPy, so islands, segments, counters, reports and files are
-equal byte for byte, and the EVD floats exactly (the same numpy draws and
-the same float64 arithmetic in the same order)."""
+packages on the same input and requires equal results: islands, segments,
+counters, reports and files are equal byte for byte (the port's island and
+backbone finders read tables of gap runs where the JAX package passes over
+whole rows), and the EVD floats exactly (the same numpy draws and the same
+float64 arithmetic in the same order)."""
 
 import contextlib
 import dataclasses
@@ -29,8 +30,10 @@ from mauvealigner_tpu.utils import simulate as jax_simulate
 from mauvealigner_tpu_torch import interop
 from mauvealigner_tpu_torch.analysis import evd, islands, score_alignment
 from mauvealigner_tpu_torch.analysis.bb_analyze import bb_analyze_report
+from mauvealigner_tpu_torch.core.interval import IntervalList
 from mauvealigner_tpu_torch.genome.sequence import Feature
 from mauvealigner_tpu_torch.tools.cli import main as torch_cli
+from mauvealigner_tpu_torch.utils import timing
 
 torch.set_num_threads(1)
 
@@ -104,6 +107,127 @@ def test_islands_between_lcbs():
     got = islands.find_islands_between_lcbs(interop.interval_list(ref_ivl), [400, 380], 40)
     assert got == jax_islands.find_islands_between_lcbs(ref_ivl, [400, 380], 40)
     assert len(got) >= 3
+
+
+def _random_row(rng, n_cols, island_size, edge_gaps):
+    """A bool alignment row of alternating runs; gap runs of island_size - 1,
+    island_size, island_size + 1 or a few columns, and with edge_gaps a gap
+    run at column 0 and at the last column."""
+    row, base = [], not edge_gaps
+    while len(row) < n_cols:
+        if base:
+            row += [True] * int(rng.integers(1, 3 * island_size))
+        else:
+            row += [False] * int(rng.choice([island_size - 1, island_size, island_size + 1,
+                                             rng.integers(1, 6)]))
+        base = not base
+    row = np.array(row[:n_cols], bool)
+    if edge_gaps:
+        row[-min(island_size, n_cols):] = False
+    return row
+
+
+def _random_interval_list(rng, n_seqs, island_size):
+    """Intervals of both strands at random genome spans (overlapping at
+    times), each row absent with some chance (multiplicity 1 included), one
+    row now and then without a base; returns (JAX list, genome lengths)."""
+    cursor = np.ones(n_seqs, np.int64)
+    reach = np.zeros(n_seqs, np.int64)
+    intervals = []
+    for k in range(int(rng.integers(3, 7))):
+        n_cols = int(rng.integers(1, 6 * island_size))
+        starts = np.zeros(n_seqs, np.int64)
+        aln = np.zeros((n_seqs, n_cols), bool)
+        for s in range(n_seqs):
+            if rng.random() < 0.25 and k:
+                continue
+            if rng.random() < 0.1:
+                row = np.zeros(n_cols, bool)
+            else:
+                row = _random_row(rng, n_cols, island_size, rng.random() < 0.5)
+            left = max(1, int(cursor[s]) + int(rng.integers(-island_size, 2 * island_size)))
+            starts[s] = left if rng.random() < 0.5 else -left
+            aln[s] = row
+            cursor[s] = left + int(row.sum())
+            reach[s] = max(reach[s], cursor[s] - 1)
+        intervals.append(JaxInterval(starts, aln))
+    glens = [int(r) + int(rng.integers(0, 2 * island_size)) for r in reach]
+    ref_ivl = JaxIntervalList(genomes=[JaxGenome.from_string("A" * g) for g in glens],
+                              intervals=intervals)
+    return ref_ivl, glens
+
+
+@pytest.mark.parametrize("n_seqs,seed", [(2, 0), (2, 1), (3, 2), (3, 3), (3, 4), (4, 5), (4, 6),
+                                         (4, 7)])
+def test_island_and_backbone_finders_match_the_reference(n_seqs, seed):
+    """The port's three finders, which read gap-run tables, against the JAX
+    package's whole-row passes on random interval lists: the same islands,
+    between-LCB islands and backbone segments in the same order, and the
+    same backbone file."""
+    rng = np.random.default_rng(seed)
+    singles = found = 0
+    for _ in range(6):
+        island_size = int(rng.integers(2, 12))
+        ref_ivl, glens = _random_interval_list(rng, n_seqs, island_size)
+        ivl = interop.interval_list(ref_ivl)
+        singles += sum(iv.multiplicity() < 2 for iv in ivl.intervals)
+        for size in (island_size, island_size - 1, 1):
+            got = islands.simple_find_islands(ivl, size)
+            ref = jax_islands.simple_find_islands(ref_ivl, size)
+            assert [dataclasses.astuple(i) for i in got] == [dataclasses.astuple(i) for i in ref]
+            found += len(got)
+            assert (islands.find_islands_between_lcbs(ivl, glens, size)
+                    == jax_islands.find_islands_between_lcbs(ref_ivl, glens, size))
+        for min_bb, max_gap in ((0, island_size), (island_size, island_size - 1), (3, 0)):
+            got = islands.simple_find_backbone(ivl, min_bb, max_gap)
+            ref = jax_islands.simple_find_backbone(ref_ivl, min_bb, max_gap)
+            assert [str(dataclasses.astuple(s)) for s in got] == [
+                str(dataclasses.astuple(s)) for s in ref]
+            assert [(s.lefts.tolist(), s.rights.tolist()) for s in got] == [
+                (s.lefts.tolist(), s.rights.tolist()) for s in ref]
+            buf, ref_buf = io.StringIO(), io.StringIO()
+            islands.write_backbone(got, buf, n_seqs)
+            jax_islands.write_backbone(ref, ref_buf, n_seqs)
+            assert buf.getvalue() == ref_buf.getvalue()
+    assert singles and found
+
+
+def test_mauve_aligner_islands_and_backbone_files_match_the_reference(tmp_path):
+    """A mauveAligner run on three 20 kbp genomes, each descendant with
+    insertions the others lack, writes the JAX package's .islands and
+    .backbone bytes; the port builds one gap-run table per present row of
+    each multiplicity >= 2 interval and finder (three finders), however
+    many islands there are."""
+    rng = np.random.default_rng(22)
+    anc = jax_simulate.random_genome(rng, 20_000)
+    with open(tmp_path / "g0.fa", "w") as fh:
+        fh.write(f">g0\n{anc.seq.tobytes().decode()}\n")
+    for k in (1, 2):
+        der, _ = jax_simulate.evolve(anc, rng, sub_rate=0.01, ins_rate=0.0005, del_rate=0.0005)
+        seq = der.seq.tobytes().decode()
+        for at in sorted(rng.integers(1000, len(seq) - 1000, 3).tolist(), reverse=True):
+            ins = jax_simulate.random_genome(rng, int(rng.integers(40, 200))).seq.tobytes()
+            seq = seq[:at] + ins.decode() + seq[at:]
+        with open(tmp_path / f"g{k}.fa", "w") as fh:
+            fh.write(f">g{k}\n{seq}\n")
+    argv = ["mauveAligner", "g0.fa", "g1.fa", "g2.fa", "--seed-size=11",
+            "--output-alignment={o}.xmfa", "--island-size=30", "--island-output={o}.islands",
+            "--backbone-size=30", "--backbone-output={o}.backbone"]
+    with contextlib.chdir(tmp_path):
+        assert jax_cli([a.replace("{o}", "j") for a in argv]) == 0
+        timing.GLOBAL.reset()
+        assert torch_cli([a.replace("{o}", "t") for a in argv] + ["--device=cpu"]) == 0
+        counters = dict(timing.GLOBAL.counters)
+    for ext in ("islands", "backbone"):
+        ref = (tmp_path / f"j.{ext}").read_bytes()
+        assert len(ref) > 0 and ref == (tmp_path / f"t.{ext}").read_bytes(), ext
+    n_islands = sum(1 for line in (tmp_path / "t.islands").read_text().splitlines()
+                    if len(line.split("\t")) == 6)
+    assert n_islands >= 2
+    ivl = IntervalList.read_xmfa(str(tmp_path / "t.xmfa"))
+    rows = sum(iv.multiplicity() for iv in ivl.intervals if iv.multiplicity() >= 2)
+    assert counters["island_row_tables"] == 3 * rows
+    assert counters["island_gap_runs"] > 0
 
 
 # ---------------- EVD (tests/test_analysis_tools.py) ----------------
