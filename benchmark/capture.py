@@ -7,8 +7,9 @@ function of the program is handed and returns.  The warm job has the timed
 jobs' inputs and writes the same bytes (the run compares every job's
 sha256).  In the window the same recorders only count (``counting``): how
 many problems and cells each timed job handed its DP and HMM launches and
-how many anchors its search returned, so the run can hold every timed
-job's work to the warm job's.  Counting copies nothing off the device.
+how many anchors its search (or the sharded pair search) returned, so the
+run can hold every timed job's work to the warm job's.  Counting copies
+nothing off the device.
 """
 
 from __future__ import annotations
@@ -71,6 +72,13 @@ def _hmm(captured, full: bool):
     return [(hmm, "pair_rows_state0_gt", wrap)]
 
 
+def _anchor_rows(ml) -> np.ndarray:
+    """rows as a match list file has them: length, then each signed start
+    (0 where absent, as the program's NO_MATCH)"""
+    return np.concatenate([np.asarray(ml.lengths, np.int64)[:, None],
+                           np.asarray(ml.starts, np.int64)], 1)
+
+
 def _find_mums(captured, full: bool):
     from mauvealigner_tpu_torch.models.aligner import MauveAligner
 
@@ -79,18 +87,57 @@ def _find_mums(captured, full: bool):
             ml = inner(self, genomes)
             _add(captured, "work.anchors", len(ml.lengths))
             if full:
-                # rows as a match list file has them: length, then each
-                # signed start (0 where absent, as the program's NO_MATCH)
-                captured["anchors"] = np.concatenate(
-                    [np.asarray(ml.lengths, np.int64)[:, None],
-                     np.asarray(ml.starts, np.int64)], 1)
+                captured["anchors"] = _anchor_rows(ml)
             return ml
         return find
 
     return [(MauveAligner, "find_mums", wrap)]
 
 
-RECORDERS = {"dp": _dp, "hmm": _hmm, "find_mums": _find_mums}
+def _pair_mums(captured, full: bool):
+    """The sharded pair search (parallel.sharded.find_pair_mums_sharded):
+    its anchors counted over the pairs, and in full one array per draft,
+    kept in the order sort_contigs_sharded was handed the drafts, whichever
+    seed weight's call searched it (a call outside sort_contigs_sharded
+    appends its drafts in its own order).  Both functions are wrapped where
+    the package exports them too."""
+    from mauvealigner_tpu_torch import parallel
+    from mauvealigner_tpu_torch.parallel import sharded
+
+    open_sorts: list = []  # per sort_contigs_sharded call in progress: (its drafts, their rows)
+
+    def wrap_sort(inner):
+        def sort(ref, drafts, *args, **kwargs):
+            open_sorts.append((list(drafts), [None] * len(drafts)))
+            try:
+                out = inner(ref, drafts, *args, **kwargs)
+            finally:
+                _, rows = open_sorts.pop()
+            if full:
+                captured.setdefault("pair_anchors", []).extend(rows)
+            return out
+        return sort
+
+    def wrap_find(inner):
+        def find(ref, drafts, *args, **kwargs):
+            mls = inner(ref, drafts, *args, **kwargs)
+            _add(captured, "work.anchors", sum(len(ml.lengths) for ml in mls))
+            if full:
+                for d, ml in zip(drafts, mls):
+                    if open_sorts:
+                        given, rows = open_sorts[-1]
+                        rows[next(i for i, g in enumerate(given) if g is d)] = _anchor_rows(ml)
+                    else:
+                        captured.setdefault("pair_anchors", []).append(_anchor_rows(ml))
+            return mls
+        return find
+
+    return [(owner, attr, wrap) for owner in (sharded, parallel)
+            for attr, wrap in (("sort_contigs_sharded", wrap_sort),
+                               ("find_pair_mums_sharded", wrap_find))]
+
+
+RECORDERS = {"dp": _dp, "hmm": _hmm, "find_mums": _find_mums, "pair_mums": _pair_mums}
 
 
 @contextlib.contextmanager

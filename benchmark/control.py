@@ -21,7 +21,9 @@ might be tempted to):
   the emission table the program hands it, in bfloat16.
 - ``sketch``: the anchor search sorting a 1/16 hash sample of the mers (the
   program's own sketched path, matchops.find_multi_mums_device's
-  sketch_mod=16) instead of every mer.
+  sketch_mod=16) instead of every mer; in the sharded pair search
+  (parallel.sharded.find_pair_mums_sharded), which has no such option, the
+  same sample of each pair's mers (matchops._sketch_compact).
 
 Faults (the timed path broken underneath):
 - ``dp_answer``: every DP answer altered where it is produced: the last
@@ -132,7 +134,9 @@ def lowp(dtype=torch.bfloat16):
 
 @contextlib.contextmanager
 def sketch(mod: int = 16):
+    from mauvealigner_tpu_torch import parallel
     from mauvealigner_tpu_torch.ops import matchops
+    from mauvealigner_tpu_torch.parallel import sharded
 
     def search(inner):
         def find(*args, **kwargs):
@@ -140,7 +144,21 @@ def sketch(mod: int = 16):
             return inner(*args, **kwargs)
         return find
 
-    with patched(matchops, "find_multi_mums_device", search):
+    def sampled(concat):
+        def entries(smls_dev):
+            return matchops._sketch_compact(*concat(smls_dev), mod)
+        return entries
+
+    def pair_search(inner):
+        def find(*args, **kwargs):
+            # each pair's entries are one concatenation of its two mer lists
+            with patched(matchops, "_concat_device_smls", sampled):
+                return inner(*args, **kwargs)
+        return find
+
+    with patched(matchops, "find_multi_mums_device", search), \
+            patched(sharded, "find_pair_mums_sharded", pair_search), \
+            patched(parallel, "find_pair_mums_sharded", pair_search):
         yield
 
 
@@ -219,8 +237,9 @@ def judged_job(cell, inputs, tmp: str, device: str) -> dict:
 
     work = cell["workload"]
     out_dir = tempfile.mkdtemp(dir=tmp)
-    argv = run_mod.expand(work["command"], inputs, out_dir) + [f"--device={device}"]
-    outputs = dict(zip(work["outputs"], run_mod.expand(work["outputs"].values(), inputs, out_dir)))
+    argv = run_mod.expand(work["command"], inputs, out_dir, cell["chips"]) + [f"--device={device}"]
+    outputs = dict(zip(work["outputs"],
+                       run_mod.expand(work["outputs"].values(), inputs, out_dir, cell["chips"])))
     buf = io.StringIO()
     captured: dict = {}
     with contextlib.redirect_stdout(buf), capture.recording(work.get("capture", []), captured):

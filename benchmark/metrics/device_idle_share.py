@@ -1,4 +1,4 @@
-"""The device's idle share over the profiled job: 1 - the union of its device intervals (kernels, copies, sets) over the job's wall."""
+"""The device's idle share over the profiled job: 1 - busy / the job's wall, where a device's busy time is the union of its device intervals (kernels, copies, sets).  On several devices busy is the mean device's (trace.reduce_events), so this reads the mean chip's idle share."""
 
 
 def read(ctx):

@@ -1,4 +1,4 @@
-"""Peak device memory of the window's jobs: torch.cuda.max_memory_allocated() after a reset at the window's start, in GiB."""
+"""Peak device memory of the window's jobs: torch.cuda.max_memory_allocated() after a reset at the window's start, in GiB.  On several devices each is reset and read, and this is the fullest device's."""
 
 
 def read(ctx):

@@ -11,7 +11,9 @@ user waits for each alignment before starting the next.  No job starts after
 inputs and must write the same bytes and do the same work as the warm job:
 the same DP and HMM problems and cells, anchors and program counters.  Once
 the window has closed, the plain reference (reference/<check>.py) judges the
-files the last job wrote and what the warm job handed its launches.
+files the last job wrote and what the warm job handed its launches.  On a
+cell of several chips a job ends when each of its devices is synchronised,
+and the peak memory is the fullest device's.
 
 With --trace 1 the window's jobs also record host spans, and one more job
 runs under torch.profiler; the per-layer metrics are read from both.
@@ -59,14 +61,15 @@ def forbidden_modules() -> list:
     return sorted({m.split(".")[0] for m in list(sys.modules)} & set(FORBIDDEN))
 
 
-def expand(template, inputs, out_dir: str):
-    """A command or output template with {inputs}, {in0}.. and {out}."""
+def expand(template, inputs, out_dir: str, chips: int = 1):
+    """A command or output template with {inputs}, {in0}.., {out} and
+    {chips} (the cell's device count)."""
     argv = []
     for word in template:
         if word == "{inputs}":
             argv.extend(inputs.files)
             continue
-        word = word.replace("{out}", out_dir)
+        word = word.replace("{out}", out_dir).replace("{chips}", str(chips))
         for k, path in enumerate(inputs.files):
             word = word.replace(f"{{in{k}}}", path)
         argv.append(word)
@@ -137,8 +140,9 @@ def run(workload: str, seed: int, seconds: float, trace: bool, device: str = "cu
 
     cell = spec.cell(workload, root)
     work = cell["workload"]
+    chips = cell["chips"]
     on_cuda = device == "cuda"
-    sync = torch.cuda.synchronize if on_cuda else (lambda: None)
+    devices = range(chips if on_cuda else 0)  # the devices synchronised and peaked
     tmp = tempfile.mkdtemp(prefix="portbench-")
     shas: list = []  # the warm job's output first, then each timed job's
     try:
@@ -146,15 +150,17 @@ def run(workload: str, seed: int, seconds: float, trace: bool, device: str = "cu
                                       os.path.join(tmp, "in"), genome_length)
         out_dir = os.path.join(tmp, "out")
         os.makedirs(out_dir)
-        argv = expand(work["command"], inputs, out_dir) + [f"--device={device}"]
-        outputs = dict(zip(work["outputs"], expand(work["outputs"].values(), inputs, out_dir)))
+        argv = expand(work["command"], inputs, out_dir, chips) + [f"--device={device}"]
+        outputs = dict(zip(work["outputs"],
+                           expand(work["outputs"].values(), inputs, out_dir, chips)))
         stdout_path = outputs.get("stdout")
 
         def job() -> int:
             buf = io.StringIO()
             with contextlib.redirect_stdout(buf):
                 rc = cli_main(list(argv))
-            sync()
+            for d in devices:
+                torch.cuda.synchronize(d)
             if stdout_path:
                 with open(stdout_path, "w") as fh:
                     fh.write(buf.getvalue())
@@ -173,8 +179,8 @@ def run(workload: str, seed: int, seconds: float, trace: bool, device: str = "cu
         shas.append(sha256_files(outputs) if warm_rc == 0 else {})
         works = [capture.work_of(captured, program_counters())]  # the warm job's first
         setup_s = time.perf_counter() - T_START
-        if on_cuda:
-            torch.cuda.reset_peak_memory_stats()
+        for d in devices:
+            torch.cuda.reset_peak_memory_stats(d)
         spans = Spans()
         if trace:
             from mauvealigner_tpu_torch.models.aligner import MauveAligner
@@ -199,10 +205,10 @@ def run(workload: str, seed: int, seconds: float, trace: bool, device: str = "cu
         with capture.recording(recorders, counts, full=False):
             walls, rcs, window_s = timed_window(job, seconds, before, after)
         spans.restore()
-        peak = torch.cuda.max_memory_allocated() if on_cuda else 0
+        peaks = [torch.cuda.max_memory_allocated(d) for d in devices]
         profiled = None
         if trace:
-            profiled = profile_job(job, torch, timing, gotoh_cuda, on_cuda)
+            profiled = profile_job(job, torch, timing, gotoh_cuda, on_cuda, chips)
             rcs.append(profiled["rc"])
             shas.append(sha256_files(outputs) if profiled["rc"] == 0 else {})
         err.write(json.dumps({"warm_job": {"work": works[0], "sha256": shas[0]}}) + "\n")
@@ -211,7 +217,7 @@ def run(workload: str, seed: int, seconds: float, trace: bool, device: str = "cu
                                   "work": works[k + 1], "sha256": h}) + "\n")
         ctx = {"cell": cell, "job_s": sum(walls) / len(walls), "setup_s": setup_s,
                "jobs": len(walls), "window_s": window_s, "phases": phases,
-               "counters": counters, "peak_bytes": peak, "trace": profiled}
+               "counters": counters, "peak_bytes": max(peaks, default=0), "trace": profiled}
         t_judge = time.perf_counter()
         if not (warm_rc == 0 and all(rc == 0 for rc in rcs)):
             checks, report = {"jobs_failed": [sum(rc != 0 for rc in rcs), 0]}, {}
@@ -235,7 +241,7 @@ def run(workload: str, seed: int, seconds: float, trace: bool, device: str = "cu
             "attempted": len(rcs),
             "failed": sum(rc != 0 for rc in rcs),
             "metrics": metrics,
-            "device": device_info(torch, on_cuda, peak, profiled),
+            "device": device_info(torch, peaks, profiled),
         }
         if profiled:
             result["breakdown"] = {"device_ops": [list(x) for x in profiled["device_ops"][:10]],
@@ -254,7 +260,7 @@ def run(workload: str, seed: int, seconds: float, trace: bool, device: str = "cu
 def timed_window(job, seconds: float, before=lambda: None, after=lambda rc: None):
     """Run job() back to back until `seconds` have passed since the first
     started; the job in flight when they pass finishes and counts.  Returns
-    each job's wall (its start to its end; job() synchronises the device),
+    each job's wall (its start to its end; job() synchronises the devices),
     each return code, and the window's length.  before() and after(rc) run
     outside the jobs' walls."""
     walls, rcs = [], []
@@ -286,7 +292,7 @@ def judge(cell, inputs, outputs, device, shas, captured, works=None):
     return checks, report
 
 
-def profile_job(job, torch, timing, gotoh_cuda, on_cuda) -> dict:
+def profile_job(job, torch, timing, gotoh_cuda, on_cuda, chips: int) -> dict:
     """One more job under torch.profiler, its spans annotated."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -309,20 +315,23 @@ def profile_job(job, torch, timing, gotoh_cuda, on_cuda) -> dict:
         restore()
     # the profiler stamps its events with the wall clock in nanoseconds,
     # the clock the job's edges were read from
-    reduced = trace_mod.reduce_events(trace_mod.kineto_events(prof), s, e)
+    reduced = trace_mod.reduce_events(trace_mod.kineto_events(prof), s, e, chips)
     reduced.update(rc=rc, launch_shapes=list(gotoh_cuda.LAUNCH_SHAPES))
     return reduced
 
 
-def device_info(torch, on_cuda: bool, peak: int, profiled) -> dict:
-    if not on_cuda:
+def device_info(torch, peaks: list, profiled) -> dict:
+    """peaks: each of the cell's devices' peak bytes (none on the CPU)."""
+    if not peaks:
         info = {"platform": "cpu", "kind": "cpu", "count": 0, "memory_peak_bytes": 0}
     else:
-        info = {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": 1,
-                "memory_peak_bytes": int(peak)}
+        info = {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": len(peaks),
+                "memory_peak_bytes": int(max(peaks)),
+                "memory_peak_bytes_by_device": [int(p) for p in peaks]}
     if profiled:
         info["busy_s"] = profiled["busy_s"]
         info["window_s"] = profiled["window_s"]
+        info["busy_s_by_device"] = profiled["busy_s_by_device"]
     return info
 
 

@@ -67,6 +67,11 @@ def test_benchmark_json_keeps_the_contract():
         assert reported["per_layer"]
 
 
+def test_at_most_a_quarter_of_the_cells_take_four_chips():
+    cells = spec.benchmark()["workloads"]
+    assert sum(w["chips"] == 4 for w in cells) <= max(1, len(cells) // 4)
+
+
 def test_a_full_check_fits_its_time_with_24_cells():
     b = spec.benchmark()
     runs = 2 + 14 * 24

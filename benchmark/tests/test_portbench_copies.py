@@ -120,8 +120,8 @@ def test_idle_share_is_the_profile_scripts_on_one_stream():
     # one stream: kernels never overlap, so the union is the scripts' sum
     rng = np.random.default_rng(4)
     starts = np.sort(rng.choice(10**7, 200, replace=False)) * 10
-    events = [("k", True, int(s), int(s) + int(rng.integers(1, 9))) for s in starts]
-    busy = sum(e - s for _, _, s, e in events) / 1e9
+    events = [("k", True, int(s), int(s) + int(rng.integers(1, 9)), 0) for s in starts]
+    busy = sum(e - s for _, _, s, e, _ in events) / 1e9
     r = trace.reduce_events(events, 0, 10**8 + 100)
     assert r["busy_s"] == pytest.approx(busy, rel=1e-12)
     assert r["window_s"] == pytest.approx((10**8 + 100) / 1e9)

@@ -17,6 +17,11 @@ Shapes it can make:
   [2000, n - 2000), each reverse-complemented with probability ``revcomp``,
   then shuffled.  Its truth is each contig's place in cut order and whether
   it was reverse-complemented.
+- ``drafts``: a reference of ``genome_length`` bases and ``count`` drafts,
+  each an independent descendant of it cut, flipped and shuffled as for
+  ``draft``.  Draft i is drawn from the seed's i-th child generator, so its
+  bases do not depend on ``count``.  Files: ``ref.fa``, then ``draft0.fa``
+  .. ``draft{count-1}.fa``.
 
 The evolution walk is the one of the program's ``utils/simulate.evolve``
 (per ancestor base: a deletion, an insertion before it, or neither, and a
@@ -63,7 +68,8 @@ class Inputs:
     genomes: List[np.ndarray]          # ASCII bytes, one per input file
     files: List[str]                    # FASTA paths, in command order
     truths: List[np.ndarray]            # position maps of genome 0 -> genome i
-    draft: Optional[Draft] = None
+    draft: Optional[Draft] = None       # the first draft
+    drafts: List[Draft] = dataclasses.field(default_factory=list)  # every draft
 
 
 def random_genome(rng: np.random.Generator, n: int) -> np.ndarray:
@@ -151,6 +157,14 @@ def make_descendants(rng, n: int, branches: list):
 
 def make_draft(rng, n: int, sub: float, indel: float, contigs: int, p_rev: float):
     ref = random_genome(rng, n)
+    return ref, cut_draft(rng, ref, sub, indel, contigs, p_rev)
+
+
+def cut_draft(rng, ref: np.ndarray, sub: float, indel: float, contigs: int,
+              p_rev: float) -> Draft:
+    """A descendant of `ref` cut into `contigs` pieces, each reverse-
+    complemented with probability `p_rev`, then shuffled."""
+    n = len(ref)
     ev, ev_truth = evolve(ref, rng, sub, indel, indel)
     cuts = np.sort(rng.choice(np.arange(2000, n - 2000), size=contigs - 1, replace=False))
     edges = np.concatenate([[0], cuts, [len(ev)]])
@@ -172,7 +186,7 @@ def make_draft(rng, n: int, sub: float, indel: float, contigs: int, p_rev: float
     pos = np.where(flips[piece], -(file_off[piece] + lens[piece] - u), file_off[piece] + u + 1)
     truth = np.zeros(n + 1, np.int64)
     truth[1:][kept] = pos
-    return ref, Draft(names, seqs, order.astype(np.int64), flips[order], truth)
+    return Draft(names, seqs, order.astype(np.int64), flips[order], truth)
 
 
 def branches_of(config: dict, traffic: dict) -> list:
@@ -198,6 +212,16 @@ def write_fasta(path: str, records) -> None:
                 fh.write("\n")
 
 
+def draft_inputs(workdir: str, ref: np.ndarray, drafts: List[Draft], names: List[str]) -> Inputs:
+    """The reference as ref.fa and each draft under its name, in that order."""
+    files = [os.path.join(workdir, f) for f in ["ref.fa", *names]]
+    write_fasta(files[0], [("ref", ref)])
+    for path, draft in zip(files[1:], drafts):
+        write_fasta(path, zip(draft.names, draft.seqs))
+    return Inputs([ref] + [np.concatenate(x.seqs) for x in drafts], files,
+                  [x.truth for x in drafts], drafts[0], drafts)
+
+
 def make_inputs(config: dict, traffic: dict, seed: int, workdir: str,
                 genome_length: Optional[int] = None) -> Inputs:
     """Make the cell's inputs from `seed` and write them under `workdir`.
@@ -216,8 +240,12 @@ def make_inputs(config: dict, traffic: dict, seed: int, workdir: str,
     if traffic["shape"] == "draft":
         d = traffic["draft"]
         ref, draft = make_draft(rng, n, d["sub"], d["indel"], d["contigs"], d["revcomp"])
-        files = [os.path.join(workdir, "ref.fa"), os.path.join(workdir, "draft.fa")]
-        write_fasta(files[0], [("ref", ref)])
-        write_fasta(files[1], zip(draft.names, draft.seqs))
-        return Inputs([ref, np.concatenate(draft.seqs)], files, [draft.truth], draft)
+        return draft_inputs(workdir, ref, [draft], ["draft.fa"])
+    if traffic["shape"] == "drafts":
+        d = traffic["drafts"]
+        ref = random_genome(rng, n)
+        drafts = [cut_draft(np.random.default_rng(child), ref, d["sub"], d["indel"], d["contigs"],
+                            d["revcomp"])
+                  for child in np.random.SeedSequence(seed % 2**64).spawn(d["count"])]
+        return draft_inputs(workdir, ref, drafts, [f"draft{i}.fa" for i in range(d["count"])])
     raise ValueError(f"unknown traffic shape {traffic['shape']!r}")
