@@ -467,51 +467,82 @@ def find_pair_mums_sharded(
     every pair's entries pad with inert INVALID entries to the longest
     pair's, and the pair count pads to the mesh size with all-INVALID rows
     (empty tables, never decoded); the shards split the pair rows; the run
-    capacity doubles until no table overflows; each table decodes with the
-    single-device decode."""
+    capacity doubles until no table overflows.  Each shard then decodes,
+    extends and deduplicates its own pairs: on a CUDA shard on its card
+    (matchops._extend_on_card, so only the deduplicated rows are fetched),
+    elsewhere on the host (decode_mum_table and the native loop); under a
+    process group the rows are gathered to every rank.
+
+    Spans: pair_sml, pair_scatter, pair_tables (the searches, their
+    capacity retries and the run counts' read) and k2_extend (decode,
+    extension, dedup and the rows' fetch).  Counters: pair_search_pairs,
+    pair_entries_per_device (the padded entries one shard sorts),
+    pair_cap_retries, and k2_extend_rows(_device) as the one-device search
+    counts them."""
     from mauvealigner_tpu_torch.core.sml import build_mer_list_device
     from mauvealigner_tpu_torch.ops import matchops
     from mauvealigner_tpu_torch.parallel import multihost
+    from mauvealigner_tpu_torch.utils import timing
 
+    timer = timing.GLOBAL
     n_dev = mesh.size
     P = len(drafts)
     if P == 0:
         return []
+    timer.add("pair_search_pairs", float(P))
     if device is None:
         device = mesh.devices[mesh.local_shards()[0]]
-    ref_sml = build_mer_list_device(ref, seed, device)
-    cols = [
-        matchops._concat_device_smls([ref_sml, build_mer_list_device(d, seed, device)])
-        for d in drafts
-    ]
-    N = max(int(k.shape[0]) for k, _, _ in cols)
-    Pp = -(-P // n_dev) * n_dev
-    K = torch.full((Pp, N), INVALID_KEY, dtype=torch.int64, device=device)
-    S = torch.zeros((Pp, N), dtype=torch.int32, device=device)
-    Ppos = torch.zeros((Pp, N), dtype=torch.int32, device=device)
-    for i, (k, s, p) in enumerate(cols):
-        n = int(k.shape[0])
-        K[i, :n], S[i, :n], Ppos[i, :n] = k, s, p
-    del cols
-    K, S, Ppos = (multihost.scatter_global(x, mesh) for x in (K, S, Ppos))
+    with timer.phase("pair_sml"):
+        ref_sml = build_mer_list_device(ref, seed, device)
+        cols = [
+            matchops._concat_device_smls([ref_sml, build_mer_list_device(d, seed, device)])
+            for d in drafts
+        ]
+        N = max(int(k.shape[0]) for k, _, _ in cols)
+        Pp = -(-P // n_dev) * n_dev
+        K = torch.full((Pp, N), INVALID_KEY, dtype=torch.int64, device=device)
+        S = torch.zeros((Pp, N), dtype=torch.int32, device=device)
+        Ppos = torch.zeros((Pp, N), dtype=torch.int32, device=device)
+        for i, (k, s, p) in enumerate(cols):
+            n = int(k.shape[0])
+            K[i, :n], S[i, :n], Ppos[i, :n] = k, s, p
+        del cols
+    with timer.phase("pair_scatter"):
+        K, S, Ppos = (multihost.scatter_global(x, mesh) for x in (K, S, Ppos))
+    per = Pp // n_dev  # pair rows per shard
+    timer.add("pair_entries_per_device", float(per * N))
     cap = max(1 << 14, N >> 3)
-    while True:
-        tabs = sharded_pair_mum_tables(K, S, Ppos, 2, cap, mesh)
-        head = _head_rows(mesh, tabs, cap).reshape(Pp, -1, 4)
-        n_runs = head[:, 0, 0]
-        if (n_runs > cap).any():
-            # capacity overflow (repeat-dense draft): retry with the covering
-            # power of two; truncating would silently drop anchors
-            cap = 1 << int(int(n_runs.max()) - 1).bit_length()
-            continue
-        break
-    out = []
-    for i in range(P):
-        ml = matchops.decode_mum_table(head[i], 2, cap, seed.length)
+    retries = 0
+    with timer.phase("pair_tables"):
+        while True:
+            tabs = sharded_pair_mum_tables(K, S, Ppos, 2, cap, mesh)
+            n_runs = multihost.fetch_replicated(
+                {d: t[:, 0, 0] for d, t in tabs.items()}, mesh).reshape(Pp)
+            if (n_runs > cap).any():
+                # capacity overflow (repeat-dense draft): retry with the covering
+                # power of two; truncating would silently drop anchors
+                cap = 1 << int(int(n_runs.max()) - 1).bit_length()
+                retries += 1
+                continue
+            break
+    timer.add("pair_cap_retries", float(retries))
+
+    def pair_matches(d, r):
+        i = d * per + r
+        head = tabs[d][r, : int(n_runs[i]) + 1]
+        genomes = [ref, drafts[i]]
+        if extend and head.device.type == "cuda":
+            return matchops._extend_on_card(head, genomes, seed.length)
+        ml = matchops.decode_mum_table(head.cpu().numpy(), 2, cap, seed.length)
         if extend and len(ml):
-            ml = matchops.extend_matches_maximal(ml, [ref.codes, drafts[i].codes])
-        out.append(ml)
-    return out
+            timer.add("k2_extend_rows", float(len(ml)))
+            ml = matchops.extend_matches_maximal(ml, [g.codes for g in genomes])
+        return ml
+
+    with timer.phase("k2_extend"):
+        local = {d: [pair_matches(d, r) for r in range(per) if d * per + r < P] for d in tabs}
+        parts = mesh.gather(local)
+    return [parts[i // per][i % per] for i in range(P)]
 
 
 def sort_contigs_sharded(
@@ -529,13 +560,18 @@ def sort_contigs_sharded(
     Returns [(reordered genome, placement log)] per draft: exactly what the
     sequential flow gives (utils/digest.sort_drafts: MauveAligner.find_mums
     and determine_lcbs with default options, then
-    tools.manipulate.sort_contigs)."""
+    tools.manipulate.sort_contigs).  Spans, as sortContigs' one-draft run
+    records them: anchoring around each seed weight's search, and
+    lcb_determination and placement per draft."""
     from mauvealigner_tpu_torch.models.lcb import greedy_breakpoint_elimination
     from mauvealigner_tpu_torch.seeds import default_mer_size, get_seed
     from mauvealigner_tpu_torch.tools.manipulate import (
         contig_placements_from_lcbs,
         sort_contigs,
     )
+    from mauvealigner_tpu_torch.utils import timing
+
+    timer = timing.GLOBAL
 
     if not drafts:
         return []
@@ -549,15 +585,19 @@ def sort_contigs_sharded(
     out: list = [None] * len(drafts)
     for weight, idxs in by_weight.items():
         seed = get_seed(weight, 0)
-        mls = find_pair_mums_sharded(ref, [drafts[i] for i in idxs], seed, mesh, device=device)
+        with timer.phase("anchoring"):
+            mls = find_pair_mums_sharded(ref, [drafts[i] for i in idxs], seed, mesh,
+                                         device=device)
         for i, ml in zip(idxs, mls):
             d = drafts[i]
             # MauveAligner.determine_lcbs with default options: n-way
             # filter, overlap elimination, re-filter, then greedy breakpoint
             # elimination at seed_weight*3*n_seqs
-            ml = ml.multiplicity_filter(2)
-            ml = ml.eliminate_overlaps().multiplicity_filter(2)
-            _, lcbs = greedy_breakpoint_elimination(ml, float(weight * 3 * 2))
-            placements = contig_placements_from_lcbs(d, lcbs, draft_seq_index=1)
-            out[i] = sort_contigs(d, placements)
+            with timer.phase("lcb_determination"):
+                ml = ml.multiplicity_filter(2)
+                ml = ml.eliminate_overlaps().multiplicity_filter(2)
+                _, lcbs = greedy_breakpoint_elimination(ml, float(weight * 3 * 2))
+            with timer.phase("placement"):
+                placements = contig_placements_from_lcbs(d, lcbs, draft_seq_index=1)
+                out[i] = sort_contigs(d, placements)
     return out

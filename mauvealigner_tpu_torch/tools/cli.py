@@ -2121,41 +2121,75 @@ def sort_contigs_cli(argv: List[str]) -> int:
     p = argparse.ArgumentParser(
         prog="sortContigs",
         description="Reorder/orient draft contigs against a reference "
-        "(reference: src/sortContigs.cpp)",
+        "(reference: src/sortContigs.cpp).  With several drafts, each "
+        "draft's placement lines follow a line naming its file.",
     )
     p.add_argument("reference")
-    p.add_argument("draft")
-    p.add_argument("--output", default="")
+    p.add_argument("drafts", nargs="+", metavar="draft")
+    p.add_argument("--output", default="",
+                   help="the reordered draft (one draft only; default <draft>.reordered)")
+    p.add_argument("--output-dir", default="",
+                   help="write each reordered draft to DIR/<basename of its file>")
     p.add_argument("--seed-size", type=int, default=0)
+    p.add_argument("--mesh-devices", type=int, default=0,
+                   help="split the drafts' anchor searches over this many "
+                   "devices (0 = single device; output is identical)")
     p.add_argument("--device", default="cuda",
                    help="torch device of the anchor search: cuda or cpu (no "
                    "fallback between them)")
     a = p.parse_args(argv)
+    several = len(a.drafts) > 1
+    if several and a.output:
+        p.error("--output takes one draft; give --output-dir for several")
+    names = [os.path.basename(d) for d in a.drafts]
+    if a.output_dir and len(set(names)) < len(names):
+        p.error("--output-dir needs drafts whose file names differ")
+    from mauvealigner_tpu_torch import parallel
     from mauvealigner_tpu_torch.genome import write_fasta
+    from mauvealigner_tpu_torch.utils import timing
+
+    timer = timing.GLOBAL
+    with timer.phase("load"):
+        ref = load_genome(a.reference)
+        drafts = [load_genome(d) for d in a.drafts]
+    if a.mesh_devices > 1:
+        sorted_drafts = parallel.sort_contigs_sharded(
+            ref, drafts, parallel.make_mesh(a.mesh_devices, device=a.device),
+            seed_weight=a.seed_size or None)
+    else:
+        sorted_drafts = [_sort_one_draft(ref, d, a.seed_size, a.device) for d in drafts]
+    with timer.phase("outputs"):
+        if a.output_dir:
+            os.makedirs(a.output_dir, exist_ok=True)
+        for path, name, (reordered, log) in zip(a.drafts, names, sorted_drafts):
+            write_fasta(reordered, os.path.join(a.output_dir, name) if a.output_dir
+                        else a.output or (path + ".reordered"))
+            if several:
+                print(path)
+            for contig, strand in log:
+                print(f"{contig}\t{'+' if strand >= 0 else '-'}"
+                      f"{'(unplaced)' if strand == 0 else ''}")
+    return 0
+
+
+def _sort_one_draft(ref, draft, seed_size: int, device):
+    """sortContigs on one draft: MauveAligner's anchors and LCBs, then the
+    placements and the reordered draft ((genome, placement log))."""
     from mauvealigner_tpu_torch.models.aligner import AlignerOptions, MauveAligner
     from mauvealigner_tpu_torch.tools.manipulate import contig_placements_from_lcbs, sort_contigs
     from mauvealigner_tpu_torch.utils import timing
 
     timer = timing.GLOBAL
     aligner = MauveAligner(
-        AlignerOptions(seed_size=a.seed_size, gapped=False, recursive=False,
-                       device=a.device)
+        AlignerOptions(seed_size=seed_size, gapped=False, recursive=False, device=device)
     )
-    with timer.phase("load"):
-        ref = load_genome(a.reference)
-        draft = load_genome(a.draft)
     with timer.phase("anchoring"):
         ml = aligner.find_mums([ref, draft])
     with timer.phase("lcb_determination"):
         _, lcbs = aligner.determine_lcbs([ref, draft], ml)
     with timer.phase("placement"):
         placements = contig_placements_from_lcbs(draft, lcbs, draft_seq_index=1)
-        reordered, log = sort_contigs(draft, placements)
-    with timer.phase("outputs"):
-        write_fasta(reordered, a.output or (a.draft + ".reordered"))
-        for name, strand in log:
-            print(f"{name}\t{'+' if strand >= 0 else '-'}{'(unplaced)' if strand == 0 else ''}")
-    return 0
+        return sort_contigs(draft, placements)
 
 
 # ---------------------------------------------------------------- trees
